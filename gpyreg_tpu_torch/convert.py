@@ -5,6 +5,8 @@ A GP's hyperparameter samples and data are its weights.
 :func:`gp_from_arrays` takes them as numpy arrays, with the metadata of
 ``gpyreg_tpu.GP.save`` (``gpyreg_tpu/gp.py:2528-2542``, the ``meta_*``
 keys without their prefix), and rebuilds the posterior on ``device``.
+The bounds, the prior table and ``no_prior`` come across too, so that
+``log_posterior`` gives the numbers of the GP they came from.
 ``GP.load`` reads a ``.npz`` written by either package through it.
 """
 
@@ -59,14 +61,19 @@ def noise_from_parameters(p):
     )
 
 
-def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True):
-    """A port GP from numpy arrays.
+def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True,
+                   bounds=None, hyper_priors=None):
+    """A port GP from numpy arrays, on ``device`` (the card by default).
 
     ``meta`` holds ``D``, ``cov_kind``, ``mean_kind``,
-    ``noise_parameters`` and ``dtype``, and optionally ``fast_predict``
-    and ``pallas_predict``.  ``X`` (N, D), ``y`` (N, 1) and ``s2``
-    (N, 1) may be None; ``hyp`` (S, hyp_N) or None.  With data and
-    ``hyp`` the posterior of every sample is built on ``device`` unless
+    ``noise_parameters`` and ``dtype``, and optionally ``fast_predict``,
+    ``pallas_predict`` and ``no_prior`` (-1 for None, as ``save``
+    writes it).  ``X`` (N, D), ``y`` (N, 1) and ``s2`` (N, 1) may be
+    None; ``hyp`` (S, hyp_N) or None.  ``bounds`` is a pair of (hyp_N,)
+    arrays (lower, upper) and ``hyper_priors`` the prior table (keys mu,
+    sigma, df, a, b, each (hyp_N,)); the normalization constants are
+    recomputed from them, as ``gpyreg_tpu.GP.load`` does.  With data and
+    ``hyp`` the posterior of every sample is built unless
     ``compute_posterior`` is False.
     """
     gp = GP(
@@ -82,6 +89,20 @@ def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True):
     for name, v in (("X", X), ("y", y), ("s2", s2)):
         if v is not None:
             setattr(gp, name, np.array(v, dtype=np.float64))
+    if bounds is not None:
+        gp.lower_bounds, gp.upper_bounds = (
+            np.array(b, dtype=np.float64) for b in bounds
+        )
+    if hyper_priors is not None:
+        gp.hyper_priors = {
+            k: np.array(v, dtype=np.float64) for k, v in hyper_priors.items()
+        }
+    if "no_prior" in meta:
+        no_prior = int(meta["no_prior"])
+        gp.no_prior = None if no_prior == -1 else bool(no_prior)
+    if gp.no_prior is not None:
+        gp._GP__recompute_normalization_constants()
+    gp._invalidate()
     if hyp is not None:
         gp.update(
             hyp=np.asarray(hyp, dtype=np.float64),

@@ -1,26 +1,33 @@
-"""The GP model object: the serving shell over the PyTorch core.
+"""The GP model object: the serving and likelihood shell over the
+PyTorch core.
 
-Port of the serving half of ``gpyreg_tpu/gp.py``.  The public surface
-mirrors the reference ``GP`` class (gaussian_process.py:24-2565): the
-constructor, the hyperparameter naming ABI, ``update``, ``predict``,
-``save``/``load`` and the ``Posterior`` field semantics, so PyVBMC-style
-consumers read the same fields.  Posterior factors live as tensors on
-the GP's ``device``; the test points are served in chunks.  A float32
-GP on a CUDA device builds every self- and cross-covariance with the
-hand-written kernel tile (``ops/kernels.py`` dispatches).
+Port of the serving and likelihood parts of ``gpyreg_tpu/gp.py``.  The
+public surface mirrors the reference ``GP`` class
+(gaussian_process.py:24-2565): the constructor, the hyperparameter naming
+ABI, bounds and priors with their normalization constants (:758-981),
+``update``, ``predict``, ``log_likelihood`` / ``log_posterior`` with
+their gradients and the reference-private shims ``_GP__compute_nlZ`` /
+``_GP__compute_log_priors`` (:1763-1825), the objective
+``_objective`` / ``_objective_batch`` (:467-516), ``save``/``load`` and
+the ``Posterior`` field semantics, so PyVBMC-style consumers read the
+same fields.  Tensors live on the GP's ``device``, the card unless the
+caller asks for the CPU; the test points are served in chunks.  A
+float32 GP on a CUDA device builds every self- and cross-covariance with
+the hand-written kernel tile, and takes the gradient of its
+self-covariance with the hand-written gradient tile (``ops/kernels.py``
+dispatches).
 
 Left out, with the JAX package's lines:
 
-- until later slices: ``fit``, the samplers, ``log_likelihood`` /
-  ``log_posterior`` and the priors' normalization constants (:940-981,
-  :1402-1830, the fit slice), the rank-1 branch of ``update``
+- until later slices: ``fit``, ``_f32_noise_floor`` and the samplers
+  (:1359-1757, the fit slice), the rank-1 branch of ``update``
   (:1075-1212, with ``core/rank1.py``; a single new point is a full
   rebuild here), ``predict_full``, ``quad``, ``random_function``,
   ``predict_quantile`` and ``plot`` (:2120-2162, :2295-2510,
   :2660-3049), output warping and the CG / matrix-free posteriors
   (:1300-1391, ``predict``'s outwarp branches :2205-2259), the mesh tier
-  (``mesh``, :312-323, :1981-2012), the recommended bounds (:808-842)
-  and ``__repr__``/``__str__`` (:681-731);
+  (``mesh``, :312-323, :1981-2012), the recommended bounds and
+  ``get_priors`` (:808-874), and ``__repr__``/``__str__`` (:681-731);
 - for good, being TPU-only: ``mxu_predict`` (:301-311, :527-538),
   ``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
   compiled XLA programs), the stacked-factor cache ``_stack_cache`` and
@@ -29,11 +36,14 @@ Left out, with the JAX package's lines:
 """
 
 import numpy as np
+import scipy as sp
 import torch
 
 from ._config import LCHOL_THRESHOLD
 from .core.model import ModelSpec
-from .core.nlml import posterior_factors
+from .core.nlml import get_fns, posterior_factors, value_and_grad
+from .core.priors import build_prior_pack, log_prior
+from .f_min_fill import smoothbox_cdf, smoothbox_student_t_cdf
 from .ops.linalg import neg_inverse_from_chol
 from .serving import (
     _post_small,
@@ -61,6 +71,20 @@ _CPU_POSTERIOR_BUDGET = 8 * 2**30
 # tools/profile_torch_slice.py): the triangular solve, which takes over
 # 90% of the time, runs faster the wider its right-hand side.
 _PREDICT_CHUNK_ELEMS = 2**28
+
+
+def resolve_device(device=None):
+    """``device`` as a ``torch.device``; None means the card.  There is no
+    fallback: without CUDA, the default raises and the caller passes
+    ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gpyreg_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU."
+        )
+    return torch.device("cuda")
 
 
 class Posterior:
@@ -107,8 +131,8 @@ class GP:
         covariances with the kernel tile (``ops/tile_kernels.py``); on
         the CPU, and in float64, the plain composition serves.
     device : torch.device or str
-        Where the factors live and the work runs (default CPU);
-        ``torch.device("cuda")`` on the card.
+        Where the factors live and the work runs: the CUDA card by
+        default (raising when there is none), ``"cpu"`` on request.
     """
 
     def __init__(
@@ -131,13 +155,15 @@ class GP:
         self.dtype = np.dtype(dtype if dtype is not None else np.float64)
         if self.dtype not in _TORCH_DTYPES:
             raise ValueError(f"dtype must be float64 or float32, got {dtype}")
-        self.device = torch.device(device if device is not None else "cpu")
+        self.device = resolve_device(device)
         self.s2 = None
         self.X = None
         self.y = None
         self.posteriors = None
         self.no_prior = None
+        self.normalization_constants = None
         self._ctx = None
+        self._fit_ctx = None
         self.set_bounds()
         self.set_priors()
         # Scratch dict used by PyVBMC (reference gaussian_process.py:61-62).
@@ -164,6 +190,7 @@ class GP:
 
     def _invalidate(self):
         self._ctx = None
+        self._fit_ctx = None
 
     def _tensor(self, a):
         return torch.as_tensor(
@@ -178,6 +205,61 @@ class GP:
                 for a in (self.X, self.y, self.s2)
             )
         return self._ctx
+
+    def _device(self):
+        """(spec, fns, obj_args, pack), built once per data set, bounds and
+        priors (``gpyreg_tpu/gp.py:392-461``).  ``obj_args`` are the
+        arguments after ``hyp`` of every function in ``fns``: the data
+        tensors on the device, then the prior pack unless ``no_prior``;
+        None without data."""
+        if self._fit_ctx is None:
+            spec = self._spec()
+            has_s2 = self.s2 is not None
+            has_prior = not self.no_prior
+            fns = get_fns(spec, has_s2, has_prior)
+            pack = None
+            if has_prior:
+                pack = build_prior_pack(
+                    self.hyper_priors,
+                    self.lower_bounds,
+                    self.upper_bounds,
+                    log_norm=float(np.sum(np.log(self.normalization_constants))),
+                    device=self.device,
+                )
+            args = None
+            if self.X is not None and self.y is not None:
+                X, y, s2 = self._data()
+                args = (X, y) + ((s2,) if has_s2 else ())
+                if pack is not None:
+                    args = args + (pack,)
+            self._fit_ctx = (spec, fns, args, pack)
+        return self._fit_ctx
+
+    def _obj_args(self):
+        _, fns, args, _ = self._device()
+        return fns, args
+
+    def _objective(self, hyp, grad=False, swap_sign=False):
+        """Scalar objective nlZ - log_prior (prior included unless
+        no_prior), mirroring __gp_obj_fun (gaussian_process.py:1540)."""
+        fns, args = self._obj_args()
+        h = np.asarray(hyp, dtype=np.float64)
+        if grad:
+            v, g = fns["obj_grad"](h, *args)
+            v, g = float(v), g.cpu().numpy()
+            return (-v, -g) if swap_sign else (v, g)
+        v = float(fns["obj"](h, *args))
+        return -v if swap_sign else v
+
+    def _objective_batch(self, hyps):
+        """Objective values over (B, hyp_N) candidates
+        (``gpyreg_tpu/gp.py:481-516``).  The lanes run one at a time, so
+        one lane's (N, N) buffers are live at once and the JAX package's
+        chunk budget, which bounds a vmapped program's workspace, has
+        nothing to bound."""
+        fns, args = self._obj_args()
+        v = fns["obj_batch"](np.asarray(hyps, dtype=np.float64), *args)
+        return v.cpu().numpy().astype(np.float64)
 
     def _posterior_batch_size(self, N, remaining):
         """Samples factorized together: the working set of one sample is
@@ -293,6 +375,9 @@ class GP:
             lower += count
         self.lower_bounds = lower_bounds
         self.upper_bounds = upper_bounds
+        self._invalidate()
+        if self.no_prior is not None:
+            self.__recompute_normalization_constants()
 
     def get_bounds(self):
         """Current bounds as a dict of ``name -> (lb, ub)``."""
@@ -311,8 +396,8 @@ class GP:
     def set_priors(self, priors: dict = None):
         """Store hyperpriors from a dict of ``name -> (type, params)``;
         types gaussian, student_t, smoothbox, smoothbox_student_t
-        (reference gaussian_process.py:418-514).  The table is kept for
-        ``save``; the truncation constants come with the fit slice."""
+        (reference gaussian_process.py:418-514).  Recomputes the
+        truncation constants at the current bounds."""
         hyp_N = self._hyp_N()
         table = {k: np.full((hyp_N,), np.nan) for k in ("mu", "sigma", "df", "a", "b")}
         fields = {
@@ -342,6 +427,51 @@ class GP:
             lower += count
         self.hyper_priors = table
         self.no_prior = not non_trivial
+        self._invalidate()
+        self.__recompute_normalization_constants()
+
+    def __recompute_normalization_constants(self):
+        """Truncation normalization of bounded priors via CDFs at the
+        bounds (``gpyreg_tpu/gp.py:940-981``, reference
+        gaussian_process.py:1234-1273)."""
+        lb, ub = self.lower_bounds, self.upper_bounds
+        table = self.hyper_priors
+        mu, df = table["mu"], table["df"]
+        sigma = np.abs(table["sigma"])
+        a, b = table["a"], table["b"]
+
+        # Mass is needed where the dimension is not pinned, a bound is
+        # finite and a proper prior is attached.
+        needs_mass = (
+            (lb != ub)
+            & (np.isfinite(lb) | np.isfinite(ub))
+            & (np.isfinite(mu) | np.isfinite(sigma))
+        )
+        boxed = np.isfinite(a) & np.isfinite(b)
+        heavy = np.isfinite(df) & (df != 0)
+
+        z = np.ones(lb.shape)
+        for i in np.flatnonzero(needs_mass):
+            if boxed[i] and heavy[i]:
+                edges = [
+                    smoothbox_student_t_cdf(v, df[i], sigma[i], a[i], b[i])
+                    for v in (ub[i], lb[i])
+                ]
+            elif boxed[i]:
+                edges = [
+                    smoothbox_cdf(v, sigma[i], a[i], b[i])
+                    for v in (ub[i], lb[i])
+                ]
+            elif heavy[i]:
+                rv = sp.stats.t(df[i], loc=mu[i], scale=sigma[i])
+                edges = [rv.cdf(ub[i]), rv.cdf(lb[i])]
+            else:
+                rv = sp.stats.norm(loc=mu[i], scale=sigma[i])
+                edges = [rv.cdf(ub[i]), rv.cdf(lb[i])]
+            z[i] = edges[0] - edges[1]
+
+        self.normalization_constants = z
+        self._invalidate()
 
     def get_hyperparameters(self, as_array: bool = False):
         """Hyperparameters as (hyp_samples, hyp_N) array or list of
@@ -439,6 +569,66 @@ class GP:
         if self.posteriors is not None:
             for p in self.posteriors:
                 p.alpha = p.sW = p.L = p.sn2_mult = p.L_chol = None
+
+    # ------------------------------------------------------------------
+    # Likelihood / posterior evaluations
+    # ------------------------------------------------------------------
+
+    def log_likelihood(self, hyp, compute_grad: bool = False):
+        """(Positive) log marginal likelihood at ``hyp`` (array or dict),
+        optionally with its gradient (``gpyreg_tpu/gp.py:1763-1774``)."""
+        if isinstance(hyp, dict):
+            hyp = self.hyperparameters_from_dict(hyp)
+        hyp = np.asarray(hyp, dtype=np.float64).reshape(-1)
+        fns, args = self._obj_args()
+        if compute_grad:
+            v, g = fns["nlz_grad"](hyp, *args)
+            return -float(v), -g.cpu().numpy()
+        return -float(fns["nlz"](hyp, *args))
+
+    def log_posterior(self, hyp, compute_grad: bool = False):
+        """(Positive) unnormalized log posterior, the log likelihood plus
+        the log prior (``gpyreg_tpu/gp.py:1776-1786``)."""
+        if isinstance(hyp, dict):
+            hyp = self.hyperparameters_from_dict(hyp)
+        hyp = np.asarray(hyp, dtype=np.float64).reshape(-1)
+        if self.no_prior:
+            return self.log_likelihood(hyp, compute_grad)
+        if compute_grad:
+            v, g = self._objective(hyp, grad=True)
+            return -v, -g
+        return -self._objective(hyp)
+
+    # The reference's own tests reach its name-mangled internals
+    # (``gpyreg_tpu/gp.py:1788-1825``); the same names, with the same
+    # sign conventions, let that code run against the port.
+
+    def __compute_nlZ(self, hyp, compute_grad, compute_prior):
+        """Negative log marginal likelihood (minus log prior when
+        ``compute_prior``); reference gaussian_process.py:1520-1538."""
+        out = (
+            self.log_posterior(hyp, compute_grad)
+            if compute_prior
+            else self.log_likelihood(hyp, compute_grad)
+        )
+        if compute_grad:
+            return -out[0], -np.asarray(out[1])
+        return -out
+
+    def __compute_log_priors(self, hyp, compute_grad):
+        """Log hyperprior (and gradient); reference
+        gaussian_process.py:1275-1466."""
+        hyp = np.asarray(hyp, dtype=np.float64).reshape(-1)
+        pack = self._device()[3]
+        if pack is None:
+            if compute_grad:
+                return 0.0, np.zeros(hyp.shape)
+            return 0.0
+        h = torch.as_tensor(hyp, device=self.device)
+        if compute_grad:
+            v, g = value_and_grad(lambda t: log_prior(pack, t), h, h)
+            return float(v), g.cpu().numpy()
+        return float(log_prior(pack, h))
 
     # ------------------------------------------------------------------
     # Prediction
@@ -580,7 +770,9 @@ class GP:
     @classmethod
     def load(cls, path, device=None):
         """Reconstruct a GP saved by ``gpyreg_tpu.GP.save`` or
-        :meth:`save`, on ``device``; posterior factors are recomputed."""
+        :meth:`save`, on ``device`` (the card by default), with its
+        bounds, prior table and normalization constants; posterior
+        factors are recomputed."""
         from .convert import gp_from_arrays
 
         with np.load(path, allow_pickle=False) as z:
@@ -601,15 +793,11 @@ class GP:
             priors = {
                 k[len("prior_"):]: z[k] for k in z.files if k.startswith("prior_")
             }
-        gp = gp_from_arrays(
+        return gp_from_arrays(
             meta, arrays["X"], arrays["y"], arrays["s2"], arrays["hyp"],
-            device=device, compute_posterior=has_factors,
+            device=device, compute_posterior=has_factors, bounds=bounds,
+            hyper_priors=priors,
         )
-        gp.lower_bounds, gp.upper_bounds = bounds
-        gp.hyper_priors = priors
-        no_prior = int(meta["no_prior"])
-        gp.no_prior = None if no_prior == -1 else bool(no_prior)
-        return gp
 
     # ------------------------------------------------------------------
     # Shapes

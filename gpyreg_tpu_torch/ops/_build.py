@@ -1,13 +1,17 @@
 """Build and load the port's CUDA kernels.
 
-The sources under ``gpyreg_tpu_torch/csrc/`` are compiled at first use
-with ``nvcc`` into a shared library with a plain C interface, written to
-``gpyreg_tpu_torch/build/`` (listed in ``.gitignore``), and loaded with
-``ctypes``.  The library's file name carries a hash of its source, so an
-edited kernel is rebuilt and a stale build is never loaded.  Nothing here
-runs at import: the CPU-only test environment has no ``nvcc``.
+Each source ``gpyreg_tpu_torch/csrc/<name>.cu`` is compiled at first use
+with ``nvcc`` into its own shared library with a plain C interface,
+written to ``gpyreg_tpu_torch/build/`` (listed in ``.gitignore``), and
+loaded with ``ctypes``: ``kernel_tile`` (the forward tile) and
+``kernel_vjp`` (its one-pass gradient).  A library's file name carries a
+hash of its source, so an edited kernel is rebuilt and a stale build is
+never loaded.  :func:`build_all` starts one ``nvcc`` per source, all at
+once.  Nothing here runs at import: the CPU-only test environment has no
+``nvcc``.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -76,6 +80,16 @@ def build(name: str) -> str:
     return lib
 
 
+SOURCES = ("kernel_tile", "kernel_vjp")
+
+
+def build_all():
+    """Build every library at once, one ``nvcc`` per source; returns
+    ``{name: path}``."""
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(build, SOURCES)))
+
+
 @functools.cache
 def kernel_tile_lib():
     """The loaded kernel-tile library with its C signatures declared."""
@@ -93,4 +107,27 @@ def kernel_tile_lib():
     lib.kernel_tile_launch.restype = ctypes.c_int
     lib.kernel_tile_max_rows.argtypes = []
     lib.kernel_tile_max_rows.restype = ctypes.c_longlong
+    return lib
+
+
+@functools.cache
+def kernel_vjp_lib():
+    """The loaded gradient-tile library with its C signatures declared."""
+    lib = ctypes.CDLL(build("kernel_vjp"))
+    p = ctypes.c_void_p
+    lib.kernel_vjp_launch.argtypes = [
+        ctypes.c_int,  # profile
+        ctypes.c_int,  # iso
+        p, p, p, p, p,  # xs, gbar, params, partials, out
+        ctypes.c_longlong,  # n
+        ctypes.c_int,  # d
+        p,  # stream
+    ]
+    lib.kernel_vjp_launch.restype = ctypes.c_int
+    lib.kernel_vjp_blocks.argtypes = [ctypes.c_longlong]
+    lib.kernel_vjp_blocks.restype = ctypes.c_longlong
+    lib.kernel_vjp_width.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.kernel_vjp_width.restype = ctypes.c_int
+    lib.kernel_vjp_max_rows.argtypes = []
+    lib.kernel_vjp_max_rows.restype = ctypes.c_longlong
     return lib

@@ -15,8 +15,9 @@ isotropic_covariance_functions.py):
 
 Dispatch: every float32 self- or cross-covariance of a CUDA tensor goes
 to the hand-written kernel tile (``ops.tile_kernels``: the self-covariance
-through ``KernelSelfFused``, the cross-covariance through
-``kernel_matrix_fused``); float64, and any tensor on the CPU, take the
+through ``KernelSelfFused``, whose backward is the hand-written gradient
+tile, the cross-covariance through ``kernel_matrix_fused``); float64, and
+any tensor on the CPU, take the
 plain composition, as in the JAX package.  Left out of ``_fused_enabled``
 (``ops/kernels.py:25-48``): the ``FUSED_MIN_N = 2048`` threshold
 (``pallas_kernels.py:332``), set on a TPU; the ``GPYREG_TPU_NO_FUSED_KERNEL``

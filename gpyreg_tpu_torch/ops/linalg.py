@@ -1,19 +1,24 @@
-"""Dense linear algebra of the serving path, on a leading batch axis.
+"""Dense linear algebra of the NLML and the posterior, on a leading
+batch axis.
 
-Port of the forward subset of ``gpyreg_tpu/ops/linalg.py``:
-``_chol_of`` (:127-141) and ``_jittered_chol_impl`` (:483-527) as
-:func:`jittered_cholesky`, ``chol_solve`` (:476), the value of
-``quad_logdet`` (:530-555) and ``neg_inverse_from_chol`` (:593-630).
-The factorizations and solves are cuSOLVER/cuBLAS (LAPACK on the CPU)
-through ``torch.linalg``.
+Port of ``gpyreg_tpu/ops/linalg.py``: ``_chol_of`` (:127-141) and
+``_jittered_chol_impl`` (:483-527) with the ``jittered_cholesky`` VJP
+(``_cholesky_vjp_core``, :428-473) as :func:`jittered_cholesky`,
+``chol_solve`` (:476), ``quad_logdet`` with its VJP (:530-590) and
+``neg_inverse_from_chol`` (:593-630).  The factorizations and solves are
+cuSOLVER/cuBLAS (LAPACK on the CPU) through ``torch.linalg``.  The two
+VJPs are ``torch.autograd.Function``s; G^-1 of the ``quad_logdet``
+adjoint comes from ``torch.cholesky_inverse``, one matrix at a time, and
+the adjoint is formed in place in that buffer.
 
-Left out until the NLML-gradient slice: the ``jittered_cholesky`` VJP
-(:428-473) and the ``quad_logdet`` VJP (:558-590).  Left out for good,
-because they exist for a TPU whose triangular solve is slow (:163-176):
-``blocked_cholesky`` / ``recursive_cholesky`` (:24-125), ``tri_inv``,
-``sym_tri_product``, ``tri_lower_matmul`` and ``_GINV_MODE``
-(:163-425), and the column-chunked inverse of ``neg_inverse_from_chol``
-(:615-630), which bounds XLA's solve temporaries.
+Left out until the samplers: ``robust_cholesky`` (:633-662).  Left out
+for good, because they exist for a TPU whose triangular solve is slow
+(:163-176): ``blocked_cholesky`` / ``recursive_cholesky`` (:24-125),
+``tri_inv``, ``sym_tri_product``, ``tri_lower_matmul``,
+``_ginv_from_chol_f32`` and ``_GINV_MODE`` (:163-425), the float32
+``tri_inv`` branch of ``_cholesky_vjp_core`` (:444-448), and the
+column-chunked inverse of ``neg_inverse_from_chol`` (:615-630), which
+bounds XLA's solve temporaries.
 """
 
 import torch
@@ -41,7 +46,7 @@ def _each(fn, *args):
     return out
 
 
-def jittered_cholesky(K, sn2_vec):
+def _jittered_cholesky_impl(K, sn2_vec):
     """Factorize ``G(m) = K + m*diag(sn2)`` for the smallest working m.
 
     ``K`` is (..., N, N) and ``sn2_vec`` broadcasts to (..., N).  m runs
@@ -83,6 +88,56 @@ def jittered_cholesky(K, sn2_vec):
     return L.reshape(K.shape), mult.reshape(batch)
 
 
+def _cholesky_vjp_core(L, L_bar):
+    """Adjoint of A -> L = cholesky(A) (lower), one matrix:
+    A_bar = L^-T Phi(L^T L_bar) L^-1, symmetrized, where Phi takes the
+    lower triangle with the diagonal halved.  Two N-wide triangular
+    solves, the float64 branch of ``gpyreg_tpu/ops/linalg.py:449-454``."""
+    P = torch.tril(L.mT @ L_bar)
+    _diag(P).mul_(0.5)
+    X = torch.linalg.solve_triangular(L.mT, P, upper=True)  # L^-T P
+    del P
+    A = torch.linalg.solve_triangular(L, X, upper=False, left=False)  # X L^-1
+    del X
+    return 0.5 * (A + A.mT)
+
+
+class JitteredCholesky(torch.autograd.Function):
+    """:func:`_jittered_cholesky_impl` with its VJP.  ``K`` is overwritten
+    with G(1), so it is marked dirty and returned as a third output,
+    which has no gradient.  ``mult`` is piecewise constant: no gradient
+    (``gpyreg_tpu/ops/linalg.py:462-470``)."""
+
+    @staticmethod
+    def forward(ctx, K, sn2_vec):
+        L, mult = _jittered_cholesky_impl(K, sn2_vec)
+        ctx.mark_dirty(K)
+        ctx.mark_non_differentiable(mult, K)
+        ctx.save_for_backward(L, mult)
+        ctx.sn2_shape = sn2_vec.shape
+        ctx.set_materialize_grads(False)
+        return L, mult, K
+
+    @staticmethod
+    def backward(ctx, L_bar, _mult_bar, _K_bar):
+        L, mult = ctx.saved_tensors
+        if L_bar is None:
+            return None, None
+        N = L.shape[-1]
+        A_bar = _each(_cholesky_vjp_core, L.reshape(-1, N, N),
+                      L_bar.reshape(-1, N, N)).reshape(L.shape)
+        sn2_bar = mult[..., None] * _diag(A_bar)
+        return A_bar, sn2_bar.sum_to_size(ctx.sn2_shape)
+
+
+def jittered_cholesky(K, sn2_vec):
+    """Factorize ``G(m) = K + m*diag(sn2)`` for the smallest working m;
+    returns ``(L, mult)`` (see :func:`_jittered_cholesky_impl`), with a
+    gradient for ``K`` and ``sn2_vec``.  ``K`` is overwritten with G(1)."""
+    L, mult, _ = JitteredCholesky.apply(K, sn2_vec)
+    return L, mult
+
+
 def chol_solve(L, b):
     """Solve (L L^T) x = b given lower Cholesky factors (one, or a
     batch on the leading axis)."""
@@ -91,16 +146,59 @@ def chol_solve(L, b):
     return _each(chol_solve, L, b.expand(L.shape[:-2] + b.shape[-2:]))
 
 
+class QuadLogdet(torch.autograd.Function):
+    """``quad_logdet`` of one matrix with the analytic VJP of
+    ``gpyreg_tpu/ops/linalg.py:566-587``:
+
+        G_bar = 0.5 * h_bar * G^-1 - q_bar * alpha alpha^T,
+        K_bar = G_bar,  sn2_bar = mult * diag(G_bar),  r_bar = 2 q_bar alpha.
+
+    ``K`` is overwritten with G(1) (marked dirty, returned as a fourth
+    output without a gradient).  The backward holds L and one (N, N)
+    buffer: ``torch.cholesky_inverse`` writes G^-1, which is scaled and
+    given the rank-one term in place and handed on as K_bar.
+    """
+
+    @staticmethod
+    def forward(ctx, K, sn2_vec, r):
+        L, mult = _jittered_cholesky_impl(K, sn2_vec)
+        alpha = chol_solve(L, r)
+        quad = torch.sum(r * alpha)
+        halflogdet = torch.sum(torch.log(_diag(L)))
+        ctx.mark_dirty(K)
+        ctx.mark_non_differentiable(mult, K)
+        ctx.save_for_backward(L, mult, alpha)
+        ctx.sn2_shape = sn2_vec.shape
+        ctx.set_materialize_grads(False)
+        return quad, halflogdet, mult, K
+
+    @staticmethod
+    def backward(ctx, q_bar, h_bar, _mult_bar, _K_bar):
+        L, mult, alpha = ctx.saved_tensors
+        if h_bar is None:
+            G_bar = torch.zeros_like(L)
+        else:
+            G_bar = torch.cholesky_inverse(L, upper=False).mul_(0.5 * h_bar)
+        a = alpha.reshape(-1)
+        if q_bar is not None:
+            G_bar.addr_(a * -q_bar, a)
+        sn2_bar = (mult * _diag(G_bar)).sum_to_size(ctx.sn2_shape)
+        r_bar = None if q_bar is None else (2.0 * q_bar) * alpha
+        return G_bar, sn2_bar, r_bar
+
+
 def quad_logdet(K, sn2_vec, r):
-    """The value of the NLML's factorize+solve+logdet block: factor
+    """The NLML's factorize+solve+logdet block: factor
     G = K + mult*diag(sn2) with jitter escalation and return
-    ``(r^T G^{-1} r, sum(log diag L), mult)``, batched over leading
-    axes.  ``K`` is overwritten (see :func:`jittered_cholesky`)."""
-    L, mult = jittered_cholesky(K, sn2_vec)
-    alpha = chol_solve(L, r)
-    quad = torch.sum(r * alpha, dim=(-2, -1))
-    halflogdet = torch.sum(torch.log(_diag(L)), dim=-1)
-    return quad, halflogdet, mult
+    ``(r^T G^{-1} r, sum(log diag L), mult)`` with the gradient of
+    :class:`QuadLogdet`; a stack of matrices goes one at a time.  ``K``
+    is overwritten (see :func:`_jittered_cholesky_impl`)."""
+    if K.ndim == 2:
+        return QuadLogdet.apply(K, sn2_vec, r)[:3]
+    sn2 = sn2_vec.expand(K.shape[:-1])
+    rb = r.expand(K.shape[:-2] + r.shape[-2:])
+    outs = [quad_logdet(*a) for a in zip(K, sn2, rb)]
+    return tuple(torch.stack(t) for t in zip(*outs))
 
 
 def neg_inverse_from_chol(L):

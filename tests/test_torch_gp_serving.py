@@ -52,7 +52,7 @@ def _jax_gp(name, tmp_path, N=50, D=2, seed=0):
     g.update(X_new=X, y_new=y, s2_new=s2, hyp=hyp, compute_posterior=True)
     path = tmp_path / f"{name}.npz"
     g.save(path)
-    return g, gt.GP.load(path), rng
+    return g, gt.GP.load(path, device="cpu"), rng
 
 
 def _rel(a, b):
@@ -124,7 +124,8 @@ def test_chunked_predict_and_prior_predict(tmp_path, monkeypatch):
     gj0.update(hyp=hyp, compute_posterior=False)
     gt0 = gt.GP(2, gt.covariance_functions.SquaredExponential(),
                 gt.mean_functions.ConstantMean(),
-                gt.noise_functions.GaussianNoise(constant_add=True))
+                gt.noise_functions.GaussianNoise(constant_add=True),
+                device="cpu")
     gt0.update(hyp=hyp, compute_posterior=False)
     for a, b in zip(gt0.predict(xs[:10], separate_samples=True),
                     gj0.predict(xs[:10], separate_samples=True)):
@@ -136,7 +137,7 @@ def test_port_save_roundtrips_through_both_packages(tmp_path):
     path = tmp_path / "port.npz"
     p.save(path)
     back_j = gj.GP.load(path)
-    back_t = gt.GP.load(path)
+    back_t = gt.GP.load(path, device="cpu")
     xs = rng.uniform(-3, 3, (20, 2))
     mu_j, s2_j = back_j.predict(xs)
     mu_t, s2_t = back_t.predict(xs)
@@ -148,7 +149,7 @@ def test_port_save_roundtrips_through_both_packages(tmp_path):
     # Saved without factors: load keeps the hyperparameters only.
     g.clean()
     g.save(tmp_path / "clean.npz")
-    empty = gt.GP.load(tmp_path / "clean.npz")
+    empty = gt.GP.load(tmp_path / "clean.npz", device="cpu")
     assert empty.posteriors[0].alpha is None
     assert np.array_equal(empty.get_hyperparameters(as_array=True),
                           g.get_hyperparameters(as_array=True))
@@ -175,13 +176,13 @@ def test_float32_slice_with_kernel_tile_matches_jax_pallas(monkeypatch):
     meta = {"D": D, "cov_kind": "se", "mean_kind": "const",
             "noise_parameters": [1, 0, 0], "dtype": "float32",
             "pallas_predict": 1}
-    p = gp_from_arrays(meta, X, y, None, hyp)
+    p = gp_from_arrays(meta, X, y, None, hyp, device="cpu")
     assert p.posteriors[0].alpha.dtype == torch.float32
     xs = rng.normal(size=(400, D))
     TK.reset_launches()
     mu_j, s2_j = g.predict(xs, separate_samples=True)
     mu_t, s2_t = p.predict(xs, separate_samples=True)
-    assert TK.LAUNCHES == {"self": 0, "cross": 0}  # CPU: plain version
+    assert TK.LAUNCHES == {"self": 0, "cross": 0, "vjp": 0}  # CPU: plain
     assert np.max(np.abs(mu_t - mu_j)) < 1e-3
     assert np.max(np.abs(s2_t - s2_j)) < 1e-3
 
@@ -206,7 +207,7 @@ def test_scaled_user_noise_survives_load(tmp_path):
     hyp[:, D + 1] = -2.0
     g.update(X_new=X, y_new=y, s2_new=s2, hyp=hyp)
     g.save(tmp_path / "scaled.npz")
-    p = gt.GP.load(tmp_path / "scaled.npz")
+    p = gt.GP.load(tmp_path / "scaled.npz", device="cpu")
     assert np.array_equal(p.noise.parameters, g.noise.parameters)
     assert gj.GP.load(tmp_path / "scaled.npz").noise.parameters[1] == 0
     xs = rng.uniform(-3, 3, (30, D))

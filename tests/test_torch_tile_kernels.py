@@ -15,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 from gpyreg_tpu.ops import pallas_kernels as PK
+from gpyreg_tpu_torch.ops import kernels as KT
 from gpyreg_tpu_torch.ops import tile_kernels as TK
 
 torch.set_num_threads(1)
@@ -70,15 +71,25 @@ def test_kernel_matrix_fused_matches_pallas(cov):
 
 
 def test_cpu_path_launches_nothing_and_self_fused_has_no_backward():
+    """On the CPU, ``KernelSelfFused`` runs both plain versions and
+    launches nothing.  It has no backward into X, as in
+    ``gpyreg_tpu/ops/pallas_kernels.py:381``; its backward into the
+    hyperparameters matches autograd of the plain composition."""
     X, _, hyp = _inputs("se", N=64, seed=2)
     TK.reset_launches()
     h = torch.as_tensor(hyp).requires_grad_(True)
-    K = TK.KernelSelfFused.apply("se", False, h, torch.as_tensor(X))
+    Xt = torch.as_tensor(X).requires_grad_(True)
+    K = TK.KernelSelfFused.apply("se", False, h, Xt)
     K_jax = np.asarray(
         PK.kernel_matrix_pallas("se", jnp.asarray(hyp), jnp.asarray(X),
                                 interpret=True)
     )
     assert np.max(np.abs(K.detach().numpy() - K_jax)) < TOL
-    assert TK.LAUNCHES == {"self": 0, "cross": 0}
-    with pytest.raises(NotImplementedError):
-        K.sum().backward()
+    K.sum().backward()
+    assert TK.LAUNCHES == {"self": 0, "cross": 0, "vjp": 0}
+    assert Xt.grad is None
+    h_ref = torch.as_tensor(hyp).requires_grad_(True)
+    KT.kernel_matrix("se", h_ref, torch.as_tensor(X)).sum().backward()
+    assert torch.max(torch.abs(h.grad - h_ref.grad)).item() < 1e-4 * max(
+        1.0, torch.max(torch.abs(h_ref.grad)).item()
+    )
