@@ -12,17 +12,27 @@ Phases, each of which raises on failure:
    TF32 off for matmuls and convolutions;
 2. build: compile both libraries (csrc/kernel_tile.cu and
    csrc/kernel_vjp.cu) from the checkout's sources, one nvcc each, both
-   started at once; the seconds taken and the ptxas lines of each;
+   started at once; the seconds taken, each library's ptxas registers
+   and spills, and the dynamic shared memory a block takes;
 3. kernel tile vs plain: the forward tile against its plain PyTorch
    version on the card, all five profiles, at the shapes the paths give
    it: the self-covariance 16384 x 16384 with zero_diag, the
    cross-covariance of a full predict chunk (16384 x 16384) and of the
    ragged last chunk (16384 x 1696), D = 10, and the training
-   self-covariance 4096 x 4096, D = 8;
+   self-covariance 4096 x 4096, D = 8 (all on the TMA store path); then
+   the path without TMA (M % 4 != 0) at 4095 x 4095 self and 4096 x 4095
+   cross, D = 8.  Every self build is bitwise symmetric with its diagonal
+   exactly sf2 * profile(0); each launch is counted on its path's key;
+   sf2 and alpha are device tensors, as the main paths pass them, and at
+   4096 x 4096 the time with Python floats (a host-to-device copy and a
+   synchronisation per call) is printed beside it;
 4. gradient tile vs plain: the one-pass gradient kernel against its
-   plain version at N = 4096, D = 8 and N = 16384, D = 10, the five ARD
-   profiles and se_iso, m1_iso, with the cotangent the training path
-   gives it, 0.5 G^-1 - alpha alpha^T of a real G = K + sn2 I;
+   plain version at N = 4096, D = 8 and N = 16384, D = 10 (TMA loads),
+   and at N = 4095, D = 8 (the path without TMA), the five ARD profiles
+   and se_iso, m1_iso, with the cotangent the training path gives it,
+   0.5 G^-1 - alpha alpha^T of a real G = K + sn2 I (column-major, so
+   read as its transpose); two launches bitwise equal; the Python-float
+   time at N = 4096 as in phase 3;
 5. the serving slice at full size (BASELINE.json config 5): an ARD-SE GP
    with constant mean and constant noise, N = 16384, D = 10, 8
    hyperparameter samples, float32, ``update`` then ``predict`` on
@@ -157,19 +167,22 @@ def _bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _tile_bound(n, m, d):
+def _tile_bound(n, m, d, self_cov=False):
     """Kernel tile: reads Xs and Zs, writes K; 3 FP32 operations per
-    entry and dimension (a subtraction and a fused multiply-add)."""
-    return _bound(4 * (n * m + (n + m) * d), n * m * 3 * d)
+    entry and dimension (a subtraction and a fused multiply-add), on one
+    half of a self-covariance (the other half is its mirror)."""
+    entries = n * (n + 1) // 2 if self_cov else n * m
+    return _bound(4 * (n * m + (n + m) * d), entries * 3 * d)
 
 
 def _vjp_bound(n, d, iso):
     """Gradient tile: reads Gbar and Xs once, writes the gradient row;
-    per entry 3 operations per dimension for t2, 2 more per dimension for
-    the ARD contraction (with the squared differences kept), and 6 for
-    the profile, E and the sums."""
+    the sum of Gbar_ij and Gbar_ji (1 operation), then per entry of one
+    half of the plane 3 operations per dimension for t2, 2 more per
+    dimension for the ARD contraction (with the squared differences
+    kept), and 6 for the profile, E and the sums."""
     return _bound(4 * (n * n + n * d + d + 2),
-                  n * n * ((3 if iso else 5) * d + 6))
+                  n * n + n * (n + 1) // 2 * ((3 if iso else 5) * d + 6))
 
 
 def phase_device():
@@ -186,21 +199,30 @@ def phase_device():
 
 
 def phase_build():
+    import re
+
     from gpyreg_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     libs = _build.build_all()
-    _build.kernel_tile_lib()
-    _build.kernel_vjp_lib()
+    tile_lib = _build.kernel_tile_lib()
+    vjp_lib = _build.kernel_vjp_lib()
     secs = time.perf_counter() - t0
     print(f"build: {', '.join(libs)} in {secs:.2f} s (one nvcc each, "
           f"started together)")
     for name, path in libs.items():
-        print(f"  {name} -> {os.path.relpath(path)}")
         with open(path[: -len(".so")] + ".log") as f:
-            for line in f.read().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}:", line.strip())
+            log = f.read()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill", log)]
+        print(f"  {name} -> {os.path.relpath(path)}: ptxas {len(regs)} "
+              f"kernels, {min(regs)}-{max(regs)} registers a thread, "
+              f"{max(spills)} bytes of spills at most")
+        if max(spills):
+            raise AssertionError(f"{name}: ptxas reports spills")
+    print(f"  dynamic shared memory a block: kernel_tile "
+          f"{tile_lib.kernel_tile_smem_bytes()} B, kernel_vjp "
+          f"{vjp_lib.kernel_vjp_smem_bytes(D + 1)} B at D = {D}")
     return secs
 
 
@@ -212,6 +234,27 @@ def _chunks():
     return chunk, M_TEST - chunk * ((M_TEST - 1) // chunk)
 
 
+def _device_params():
+    """sf2 and alpha as the main paths hand them to the kernels: float32
+    tensors on the card (``ops.kernels.cov_params``)."""
+    from gpyreg_tpu_torch.ops.kernels import cov_params
+
+    h = torch.tensor([0.0, 0.1, 0.3], dtype=torch.float32, device=DEV)
+    _, sf2, alpha = cov_params("rq", False, h, torch.zeros((1, 1), device=DEV))
+    return sf2, alpha
+
+
+def _one_launch(TK, key, fn):
+    """fn() with the launch counts set to 0 before; checks that it made
+    one launch, on ``key``."""
+    TK.reset_launches()
+    out = fn()
+    want = {**dict.fromkeys(TK.LAUNCHES, 0), key: 1}
+    if TK.LAUNCHES != want:
+        raise AssertionError(f"launches {TK.LAUNCHES}, expected one {key}")
+    return out
+
+
 def phase_kernel_vs_plain(X, xs, X_tr):
     from gpyreg_tpu_torch.ops import tile_kernels as TK
 
@@ -220,29 +263,49 @@ def phase_kernel_vs_plain(X, xs, X_tr):
     Zc = torch.as_tensor(xs[:chunk], dtype=torch.float32, device=DEV)
     Zt = torch.as_tensor(xs[-tail:], dtype=torch.float32, device=DEV)
     Xt = torch.as_tensor(X_tr, dtype=torch.float32, device=DEV)
-    sf2, alpha = float(np.exp(0.2)), float(np.exp(0.3))
+    # N and M = 4095: the path without TMA.  The cross case takes fresh
+    # points: rows shared with Xt would be duplicates at t2 = 0, where the
+    # plain version's norm expansion leaves a rounding residue that the m1
+    # profile turns into a 3e-3 error.
+    Xu = Xt[:N_TR - 1].contiguous()
+    Zu = torch.as_tensor(np.random.default_rng(SEED + 2).normal(
+        size=(N_TR - 1, Xt.shape[1])), dtype=torch.float32, device=DEV)
+    sf2, alpha = _device_params()
     results = {}
-    for use, (A, B, zd, reps) in (
-        ("self", (Xs, Xs, True, 5)),
-        ("cross", (Xs, Zc, False, 5)),
-        ("cross_tail", (Xs, Zt, False, 20)),
-        ("self_train", (Xt, Xt, True, 20)),
+    for use, key, (A, B, zd, reps) in (
+        ("self", "self", (Xs, Xs, True, 5)),
+        ("cross", "cross", (Xs, Zc, False, 5)),
+        ("cross_tail", "cross", (Xs, Zt, False, 20)),
+        ("self_train", "self", (Xt, Xt, True, 20)),
+        ("self_unaligned", "self_unaligned", (Xu, Xu, True, 20)),
+        ("cross_unaligned", "cross_unaligned", (Xt, Zu, False, 20)),
     ):
         for base in TK.PROFILES:
-            K = TK.kernel_cross(base, A, B, sf2, alpha, zero_diag=zd)
+            K = _one_launch(TK, key, lambda: TK.kernel_cross(
+                base, A, B, sf2, alpha, zero_diag=zd))
             ref = TK.kernel_cross_ref(base, A, B, sf2, alpha, zero_diag=zd)
             torch.cuda.synchronize()
             err = torch.max(torch.abs(K - ref)).item()
-            del K, ref
+            del ref
+            if zd:
+                k0 = TK.kernel_cross_ref(base, A[:1], A[:1], sf2, alpha,
+                                         zero_diag=True)[0, 0]
+                if not (torch.equal(K, K.T)
+                        and torch.all(torch.diagonal(K) == k0)):
+                    raise AssertionError(
+                        f"kernel_tile {use} {base}: the self build is not "
+                        f"bitwise symmetric with diagonal sf2 * profile(0)")
+            del K
             ms, plain_ms, t_kern, t_plain = _turns(
                 lambda: TK.kernel_cross(base, A, B, sf2, alpha, zero_diag=zd),
                 lambda: TK.kernel_cross_ref(base, A, B, sf2, alpha,
                                             zero_diag=zd),
                 reps,
             )
-            print(f"kernel_tile {use:10s} {base}: {A.shape[0]}x{B.shape[0]} "
-                  f"D={A.shape[1]} max_abs_err={err:.3e} kernel {ms:.4f} ms "
-                  f"(runs {t_kern}) plain {plain_ms:.4f} ms (runs {t_plain})")
+            print(f"kernel_tile {use:15s} {base}: {A.shape[0]}x{B.shape[0]} "
+                  f"D={A.shape[1]} path {key} max_abs_err={err:.3e} kernel "
+                  f"{ms:.4f} ms (runs {t_kern}) plain {plain_ms:.4f} ms "
+                  f"(runs {t_plain}){' symmetric' if zd else ''}")
             if not err < KERNEL_TOL:
                 raise AssertionError(
                     f"kernel_tile {use} {base}: max abs error {err} "
@@ -250,6 +313,16 @@ def phase_kernel_vs_plain(X, xs, X_tr):
                 )
             results[(use, base)] = (err, ms, plain_ms, A.shape[0],
                                     B.shape[0], A.shape[1])
+    # The cost of timing with Python floats: each is copied to the card,
+    # with a synchronisation, on every call.
+    f_sf2, f_alpha = sf2.item(), alpha.item()
+    float_ms = _time_ms(lambda: TK.kernel_cross("se", Xt, Xt, f_sf2, f_alpha,
+                                                zero_diag=True), 20)
+    dev_ms = _time_ms(lambda: TK.kernel_cross("se", Xt, Xt, sf2, alpha,
+                                              zero_diag=True), 20)
+    print(f"kernel_tile self_train se {N_TR}x{N_TR}: device params "
+          f"{dev_ms:.4f} ms, Python floats {float_ms:.4f} ms")
+    results["python_float"] = (dev_ms, float_ms)
     return results
 
 
@@ -280,16 +353,18 @@ def phase_vjp_vs_plain(cases):
     ms, plain_ms, n, d)}."""
     from gpyreg_tpu_torch.ops import tile_kernels as TK
 
-    sf2, alpha = float(np.exp(0.2)), float(np.exp(0.3))
+    sf2, alpha = _device_params()
     results = {}
     for label, X, y, hyp in cases:
         Xs, Gbar = _path_cotangent(X, y, hyp)
         n, d = Xs.shape
+        key = "vjp" if n % 4 == 0 else "vjp_unaligned"
         reps = 20 if n <= 4096 else 3
         for cov in VJP_COVS:
             iso = cov.endswith("_iso")
             base = cov[:-4] if iso else cov
-            g = TK.vjp_tile(base, iso, Xs, Gbar, sf2, alpha)
+            g = _one_launch(TK, key, lambda: TK.vjp_tile(base, iso, Xs, Gbar,
+                                                        sf2, alpha))
             ref = TK.vjp_tile_ref(base, iso, Xs, Gbar, sf2, alpha)
             torch.cuda.synchronize()
             err = torch.max(torch.abs(g - ref)).item()
@@ -305,7 +380,8 @@ def phase_vjp_vs_plain(cases):
                 reps,
             )
             bound_ms, _ = _vjp_bound(n, d, iso)
-            print(f"kernel_vjp {label} {cov}: N={n} D={d} width {g.numel()} "
+            print(f"kernel_vjp {label} {cov}: N={n} D={d} path {key} width "
+                  f"{g.numel()} "
                   f"max_abs_err={err:.3e} max rel err (scaled by "
                   f"max(|g_plain|, 1)) {rel:.3e} (bound {VJP_RTOL}); max "
                   f"|g| {torch.max(torch.abs(ref)).item():.4e}; kernel "
@@ -317,6 +393,16 @@ def phase_vjp_vs_plain(cases):
                     f">= {VJP_RTOL}"
                 )
             results[(label, cov)] = (err, rel, ms, plain_ms, n, d)
+        if label == "bench":
+            # With Python floats: a copy and a sync per call.
+            f_sf2, f_alpha = sf2.item(), alpha.item()
+            float_ms = _time_ms(lambda: TK.vjp_tile("se", False, Xs, Gbar,
+                                                    f_sf2, f_alpha), reps)
+            dev_ms = _time_ms(lambda: TK.vjp_tile("se", False, Xs, Gbar, sf2,
+                                                  alpha), reps)
+            print(f"kernel_vjp bench se N={n}: device params {dev_ms:.4f} ms, "
+                  f"Python floats {float_ms:.4f} ms")
+            results["python_float"] = (dev_ms, float_ms)
         del Xs, Gbar
         torch.cuda.empty_cache()
     return results
@@ -350,7 +436,8 @@ def phase_slice(X, y, xs, hyp):
         raise AssertionError(f"predict shapes {mu.shape}, {s2.shape}")
     if not (np.all(np.isfinite(mu)) and np.all(np.isfinite(s2))):
         raise AssertionError("predict returned non-finite values")
-    want = {"self": S, "cross": S * n_chunks, "vjp": 0}
+    want = {**dict.fromkeys(TK.LAUNCHES, 0), "self": S,
+            "cross": S * n_chunks}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     return gp, launches
@@ -486,7 +573,8 @@ def phase_train_bench(X, y, hyps):
           f"{ITERS} iterations (rounds {[round(x, 3) for x in rates]}); peak "
           f"device memory {peak / 2**30:.3f} GiB; launches {launches}")
     calls = B_TR * ROUNDS * ITERS
-    if launches != {"self": calls, "cross": 0, "vjp": calls}:
+    none = dict.fromkeys(TK.LAUNCHES, 0)
+    if launches != {**none, "self": calls, "vjp": calls}:
         raise AssertionError(f"training launches {launches}, expected "
                              f"{calls} self and {calls} vjp")
 
@@ -503,8 +591,8 @@ def phase_train_bench(X, y, hyps):
     print(f"GP.log_likelihood {ll:.6f} (launches {after_ll}); "
           f"GP.log_posterior {lp:.6f} = log_likelihood + log prior "
           f"{ll + lprior:.6f} (launches {after_lp})")
-    if (after_ll != {"self": 1, "cross": 0, "vjp": 1}
-            or after_lp != {"self": 2, "cross": 0, "vjp": 2}):
+    if (after_ll != {**none, "self": 1, "vjp": 1}
+            or after_lp != {**none, "self": 2, "vjp": 2}):
         raise AssertionError("log_likelihood / log_posterior did not launch "
                              "one of each kernel per call")
     if not (abs(lp - (ll + lprior)) <= 1e-6 * max(1.0, abs(lp))
@@ -530,7 +618,7 @@ def phase_train_bench(X, y, hyps):
           f"s per iteration ({res.message}); launches {lb_launches}")
     if not (res.nit >= 1 and res.fun < start_nlml):
         raise AssertionError("L-BFGS-B did not lower the NLML")
-    if lb_launches != {"self": res.nfev, "cross": 0, "vjp": res.nfev}:
+    if lb_launches != {**none, "self": res.nfev, "vjp": res.nfev}:
         raise AssertionError("L-BFGS-B evaluations did not each launch one "
                              "of each kernel")
     return gp, {"evals_per_s": evals, "rounds": rates, "peak": peak,
@@ -559,7 +647,7 @@ def phase_train_config5(gp, hyp):
           f"{secs / S:.4f} s per lane-eval ({secs:.3f} s the batch); peak "
           f"device memory {peak / 2**30:.2f} GiB (the serving factors "
           f"included); launches {launches}")
-    if launches != {"self": S, "cross": 0, "vjp": S}:
+    if launches != {**dict.fromkeys(TK.LAUNCHES, 0), "self": S, "vjp": S}:
         raise AssertionError(f"config-5 training launches {launches}")
     return {"secs_per_lane": secs / S, "peak": peak, "launches": launches}
 
@@ -641,30 +729,60 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5):
     vjpk = ("gpyreg_tpu_torch/csrc/kernel_vjp.cu",
             "gpyreg_tpu/ops/pallas_kernels.py:184")
     out = []
-    for use, key, launches in (
-        ("serving self", "self", serve_launches["self"]),
-        ("serving cross", "cross", serve_launches["cross"]),
-        ("config-5 training self", "self", cfg5["launches"]["self"]),
-        ("bench training self", "self_train", bench["launches"]["self"]),
+    for use, key, counts, path in (
+        ("serving self", "self", serve_launches, "self"),
+        ("serving cross", "cross", serve_launches, "cross"),
+        ("config-5 training self", "self", cfg5["launches"], "self"),
+        ("bench training self", "self_train", bench["launches"], "self"),
     ):
         err, ms, plain_ms, n, m, d = kern[(key, "se")]
-        e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile, launches,
-                   err, ms, plain_ms, _tile_bound(n, m, d))
+        e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile,
+                   counts[path], err, ms, plain_ms,
+                   _tile_bound(n, m, d, self_cov=path == "self"))
         e["max_abs_err_all_profiles"] = max(kern[(key, b)][0] for b in PROFILES)
+        # The main path's launches by dispatch: TMA store, or plain stores.
+        e["launches_by_dispatch"] = {"tma": counts[path],
+                                     "unaligned": counts[path + "_unaligned"]}
         if key == "cross":
             tail = kern[("cross_tail", "se")]
             e["tail_ms"], e["tail_plain_ms"] = tail[1], tail[2]
             e["tail_bound_ms"] = _tile_bound(tail[3], tail[4], tail[5])[0]
+        if key in ("cross", "self_train"):
+            # The path without TMA, held to the plain version in phase 3.
+            ukey = "cross_unaligned" if key == "cross" else "self_unaligned"
+            uerr, ums, uplain, un, um, ud = kern[(ukey, "se")]
+            e["unaligned_check"] = {
+                "shape": f"{un}x{um}, D={ud}",
+                "max_abs_err_all_profiles": max(kern[(ukey, b)][0]
+                                                for b in PROFILES),
+                "ms": ums, "plain_ms": uplain,
+                "bound_ms": _tile_bound(un, um, ud,
+                                        self_cov=ukey == "self_unaligned")[0],
+            }
+        if key == "self_train":
+            e["python_float_ms"] = kern["python_float"][1]
         out.append(e)
-    for use, label, launches in (
-        ("bench training", "bench", bench["launches"]["vjp"]),
-        ("config-5 training", "config5", cfg5["launches"]["vjp"]),
+    for use, label, counts in (
+        ("bench training", "bench", bench["launches"]),
+        ("config-5 training", "config5", cfg5["launches"]),
     ):
         err, rel, ms, plain_ms, n, d = vjp[(label, "se")]
-        e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk, launches,
-                   err, ms, plain_ms, _vjp_bound(n, d, False))
+        e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk,
+                   counts["vjp"], err, ms, plain_ms, _vjp_bound(n, d, False))
         e["max_rel_err_all_profiles"] = max(
             vjp[(label, c)][1] for c in VJP_COVS)
+        e["launches_by_dispatch"] = {"tma": counts["vjp"],
+                                     "unaligned": counts["vjp_unaligned"]}
+        if label == "bench":
+            uerr, urel, ums, uplain, un, ud = vjp[("bench_unaligned", "se")]
+            e["unaligned_check"] = {
+                "shape": f"N={un}, D={ud}",
+                "max_rel_err_all_profiles": max(
+                    vjp[("bench_unaligned", c)][1] for c in VJP_COVS),
+                "ms": ums, "plain_ms": uplain,
+                "bound_ms": _vjp_bound(un, ud, False)[0],
+            }
+            e["python_float_ms"] = vjp["python_float"][1]
         out.append(e)
     return out
 
@@ -682,6 +800,8 @@ def main():
     X_tr, y_tr, hyps_tr = _train_data(N_TR, SEED)
     kern = phase_kernel_vs_plain(X, xs, X_tr)
     vjp = phase_vjp_vs_plain((("bench", X_tr, y_tr, hyps_tr[0]),
+                              ("bench_unaligned", X_tr[:N_TR - 1],
+                               y_tr[:N_TR - 1], hyps_tr[0]),
                               ("config5", X, y, hyp[0])))
     torch.cuda.empty_cache()
     gp, serve_launches = phase_slice(X, y, xs, hyp)

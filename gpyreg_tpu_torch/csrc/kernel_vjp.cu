@@ -17,50 +17,82 @@
 // t2 == 0, off the diagonal too (duplicate points), so Matern-1/2 gives no
 // 0 * inf.
 //
-// What bounds it: reading Gbar once, N^2 * 4 bytes (1.07 GB at N = 16384).
-// The arithmetic, about 6D + 30 flops per entry for ARD, stays under the
-// time of that read on the FP32 pipes at the D of the workloads (8-10).
-// The design:
+// What bounds it: reading Gbar once, N^2 * 4 bytes (1.07 GB, 0.32 ms at
+// 3.35 TB/s, at N = 16384).  The arithmetic, about 5D + 6 FP32 operations
+// per entry for ARD, most of them not FMAs, costs as many issue slots as
+// that read.  The design halves the arithmetic and overlaps it with the
+// read:
 //
-// - the tiling of kernel_tile.cu: a block of 32 x 8 threads owns a 64 x 128
-//   tile of the plane, 8 x 4 entries a thread, the rows of xs staged in
-//   padded shared memory 16 dimensions at a time (D is a runtime argument);
-// - t2 is the direct sum of squared differences, and the ARD contraction is
-//   the direct sum_ij E_ij (xs_ik - xs_jk)^2 in a second pass over the
-//   staged dimensions (about 3 flops per entry and dimension), not the TPU
-//   kernel's expansion sum xs^2 rowE + sum zs^2 colE - 2 sum xs (E zs),
-//   which cancels when the data sit far from the origin relative to their
-//   spread;
-// - the 32 threads of a warp read 32 neighbouring floats of a row of Gbar:
-//   every read is one coalesced 128-byte line, and each entry is read once;
-// - no atomics: each block reduces its values (warp shuffles, then the 8
-//   warps in order) into one row of float64 partials, and a second launch
-//   sums each column of partials in a fixed order, in float64.  The result
-//   is the same bit for bit from run to run, and the 2.7e8 terms at
-//   N = 16384 lose no digits to a float32 running sum;
-// - ragged edges are masked (an entry outside the plane has Gbar = 0, and so
-//   adds 0), offsets are 64-bit, the profile is a template parameter, and
+// - folded pairs: every term other than Gbar is symmetric in (i, j) (t2_ij
+//   and t2_ji are the same float), so sum_ij Gbar_ij f_ij equals the sum
+//   over i < j of (Gbar_ij + Gbar_ji) f_ij plus the diagonal, for any
+//   Gbar.  The plane is cut into square 64 x 64 tiles; a work item is an
+//   unordered tile pair (I, J), I <= J.  For I < J the block reads the tile
+//   Gbar[I, J] and its mirror Gbar[J, I], and evaluates t2, K, P and E once
+//   per entry from Gbar_ij + Gbar_ji; a diagonal tile is read once and adds
+//   each entry once.  The mirror is read through shared memory, both
+//   global reads stay coalesced, and the 128-byte swizzle of the tile
+//   (tile_common.cuh) keeps the transposed reads free of bank conflicts;
+// - a persistent grid, two blocks of 256 threads per SM, walks the pairs
+//   in a fixed static order; the Gbar tiles of the next-but-one pair come
+//   in by TMA (cp.async.bulk.tensor with an mbarrier) into a two-stage ring,
+//   and their rows of xs by cp.async, while the current pair computes;
+// - exact D: the dimensions are staged 16 at a time and the unrolled loops
+//   skip those past D with a uniform branch; for D <= 16 the ARD pass
+//   reuses the staged chunk, and for D > 16 each further chunk is staged
+//   once per pass.  The workloads' D = 8 and D = 10 have instantiations
+//   whose loops over the chunk have compile-time bounds, which the compiler
+//   schedules as straight-line code;
+// - t2 is the direct sum of squared differences, and the ARD contraction
+//   the direct sum_ij E_ij (xs_ik - xs_jk)^2, not the TPU kernel's
+//   expansion, which cancels when the data sit far from the origin;
+// - sums: each thread adds its 16 entries of a pair in float32 and the
+//   pair's sums into float64 registers (for D > 16, the ARD sums go warp by
+//   warp into float64 shared memory), so a block keeps its running sums
+//   across all of its pairs and writes one row of float64 partials at the
+//   end (264 rows on a 132-SM card, not 32,768 at N = 16384).  A second
+//   launch sums each column of partials in a fixed order.  No atomics: the
+//   result is the same bit for bit from launch to launch;
+// - TMA needs a 16-byte-aligned base and a row stride that is a multiple
+//   of 16 bytes (N % 4 == 0).  For other N, or another base, the same tiles
+//   come in by 4-byte cp.async into the same swizzled layout.  The wrapper
+//   picks the path from N and the base (a dispatch on shape) and counts it
+//   on its own key;
+// - ragged edges read Gbar = 0 (TMA's and cp.async's zero fill) and add
+//   nothing; offsets are 64-bit, the profile is a template parameter, and
 //   the library is not built with --use_fast_math.
+//
+// Changed from the first CUDA version of this kernel: that one launched one
+// block per 64 x 128 tile of the whole plane, read Gbar with scalar loads
+// only after its first pass over the dimensions, ran all 16 dimensions of
+// its chunk whatever D was, staged xs again for the ARD pass, evaluated
+// every off-diagonal entry twice, and wrote one row of partials per block.
 //
 // Build (plain C interface, loaded with ctypes by ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-#include <cuda_runtime.h>
+#include "tile_common.cuh"
 
 namespace {
 
-constexpr int kThreadsX = 32;
-constexpr int kThreadsY = 8;
-constexpr int kRegN = 8;
-constexpr int kRegM = 4;
-constexpr int kTileN = kThreadsY * kRegN;  // 64 rows per block
-constexpr int kTileM = kThreadsX * kRegM;  // 128 columns per block
-constexpr int kChunkD = 16;
-constexpr int kThreads = kThreadsX * kThreadsY;
-constexpr int kWarps = kThreads / 32;
+using namespace tile;
+
 constexpr int kReduceThreads = 256;
 
 enum Profile { kSE = 0, kM1 = 1, kM3 = 2, kM5 = 3, kRQ = 4 };
+
+// Shared memory, in floats from a 1024-byte-aligned base: two ring stages
+// of [Gbar tile, mirror tile, xs rows of I, xs rows of J], one more pair of
+// chunk buffers for dimensions past the first 16, two mbarriers, then the
+// float64 block sums [kWarps][width].
+constexpr int kStageFloats = 2 * kTileFloats + 2 * kXsFloats;
+constexpr int kExtraOffset = 2 * kStageFloats;
+constexpr int kBarOffset = kExtraOffset + 2 * kXsFloats;
+constexpr int kRedOffset = kBarOffset + 4;  // two 8-byte mbarriers
+
+size_t smem_bytes(int width) {
+  return kRedOffset * sizeof(float) + kWarps * width * sizeof(double) + 1024;
+}
 
 // K = sf2 * profile(t2) and P = dK/dt2 (0 at t2 == 0 for the Materns).
 template <int P>
@@ -91,168 +123,294 @@ __device__ __forceinline__ void value_and_slope(float t2, float sf2,
   }
 }
 
-// Sums v[0 .. m-1] over the block in a fixed order and writes the sums to
-// dst[0 .. m-1] in float64.  Every thread of the block calls it.
-template <int MaxM>
-__device__ __forceinline__ void block_sum_store(const float (&v)[MaxM], int m,
-                                                double (*red)[kChunkD],
-                                                double* dst) {
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
-  for (int i = 0; i < MaxM; ++i) {
-    double s = static_cast<double>(v[i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) red[warp][i] = s;
-  }
-  __syncthreads();
-  if (tid < m) {
-    double t = 0.0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += red[w][tid];
-    dst[tid] = t;
-  }
-  __syncthreads();
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
 }
 
-__device__ __forceinline__ void stage(float (*sx)[kChunkD + 1],
-                                      float (*sz)[kChunkD + 1],
-                                      const float* __restrict__ xs,
-                                      long long row0, long long col0,
-                                      long long n, int d, int k0) {
-  const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  for (int i = tid; i < kTileN * kChunkD; i += kThreads) {
-    const int r = i / kChunkD;
-    const int k = i % kChunkD;
-    const long long gr = row0 + r;
-    const int gk = k0 + k;
-    sx[r][k] = (gr < n && gk < d) ? xs[gr * d + gk] : 0.0f;
-  }
-  for (int i = tid; i < kTileM * kChunkD; i += kThreads) {
-    const int c = i / kChunkD;
-    const int k = i % kChunkD;
-    const long long gc = col0 + c;
-    const int gk = k0 + k;
-    sz[c][k] = (gc < n && gk < d) ? xs[gc * d + gk] : 0.0f;
-  }
-}
-
-template <int P, bool Iso>
-__global__ void __launch_bounds__(kThreads)
-kernel_vjp(const float* __restrict__ xs, const float* __restrict__ gbar,
-           const float* __restrict__ params, double* __restrict__ partials,
-           long long n, int d, int width) {
-  __shared__ float sx[kTileN][kChunkD + 1];
-  __shared__ float sz[kTileM][kChunkD + 1];
-  __shared__ double red[kWarps][kChunkD];
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const long long row0 = static_cast<long long>(blockIdx.y) * kTileN;
-  const long long col0 = static_cast<long long>(blockIdx.x) * kTileM;
-  double* out = partials +
-      (static_cast<long long>(blockIdx.y) * gridDim.x + blockIdx.x) * width;
-
-  // Pass 1: t2 by direct differences, as in kernel_tile.cu.
-  float acc[kRegN][kRegM];
+// gk[k] = sum over the thread's block of E (xi[4a+r] - xj[4b+c])^2 for the
+// dimensions k < kd of two staged chunks (unconditional loads, as in
+// add_sq_dist).
+__device__ __forceinline__ void ard_sums(float (&gk)[kChunkD],
+                                         const float (&e)[4][4],
+                                         const float* si, const float* sj,
+                                         int a, int b, int kd) {
 #pragma unroll
-  for (int r = 0; r < kRegN; ++r)
-#pragma unroll
-    for (int c = 0; c < kRegM; ++c) acc[r][c] = 0.0f;
-
-  for (int k0 = 0; k0 < d; k0 += kChunkD) {
-    stage(sx, sz, xs, row0, col0, n, d, k0);
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kChunkD; ++k) {
-      float zv[kRegM];
-#pragma unroll
-      for (int c = 0; c < kRegM; ++c) zv[c] = sz[tx + kThreadsX * c][k];
-#pragma unroll
-      for (int r = 0; r < kRegN; ++r) {
-        const float xv = sx[ty + kThreadsY * r][k];
-#pragma unroll
-        for (int c = 0; c < kRegM; ++c) {
-          const float diff = xv - zv[c];
-          acc[r][c] = fmaf(diff, diff, acc[r][c]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // K, P and E per entry; acc[r][c] becomes E.  Entries outside the plane
-  // read Gbar = 0 and add nothing.
-  const float sf2 = params[0];
-  const float alpha = params[1];
-  float s_t2 = 0.0f, s_k = 0.0f, s_rq = 0.0f;
-#pragma unroll
-  for (int r = 0; r < kRegN; ++r) {
-    const long long gr = row0 + ty + kThreadsY * r;
-#pragma unroll
-    for (int c = 0; c < kRegM; ++c) {
-      const long long gc = col0 + tx + kThreadsX * c;
-      const float g = (gr < n && gc < n) ? gbar[gr * n + gc] : 0.0f;
-      float t2 = gr == gc ? 0.0f : fmaxf(acc[r][c], 0.0f);
-      float k, p;
-      value_and_slope<P>(t2, sf2, alpha, k, p);
-      const float e = -2.0f * g * p;
-      const float gk = g * k;
-      s_k += gk;
-      if (Iso) s_t2 = fmaf(e, t2, s_t2);
-      if (P == kRQ) {
-        const float m = 1.0f + 0.5f * t2 / alpha;
-        s_rq = fmaf(gk, 0.5f * t2 / m - alpha * logf(m), s_rq);
-      }
-      acc[r][c] = e;
-    }
-  }
-
-  if (Iso) {
-    const float v[2] = {s_t2, 2.0f * s_k};
-    block_sum_store(v, 2, red, out);
-    return;
-  }
-  {
-    const float v[2] = {2.0f * s_k, s_rq};
-    block_sum_store(v, P == kRQ ? 2 : 1, red, out + d);
-  }
-
-  // Pass 2 (ARD): g_k = sum E (xs_ik - xs_jk)^2, 16 dimensions at a time.
-  for (int k0 = 0; k0 < d; k0 += kChunkD) {
-    stage(sx, sz, xs, row0, col0, n, d, k0);
-    __syncthreads();
-    float gk[kChunkD];
-#pragma unroll
-    for (int k = 0; k < kChunkD; ++k) {
-      float zv[kRegM];
-#pragma unroll
-      for (int c = 0; c < kRegM; ++c) zv[c] = sz[tx + kThreadsX * c][k];
+  for (int k = 0; k < kChunkD; ++k) {
+    gk[k] = 0.0f;
+    const float4 x = *reinterpret_cast<const float4*>(si + k * kT + 4 * a);
+    const float4 z = *reinterpret_cast<const float4*>(sj + k * kT + 4 * b);
+    if (k < kd) {
+      const float xv[4] = {x.x, x.y, x.z, x.w};
+      const float zv[4] = {z.x, z.y, z.z, z.w};
       float s = 0.0f;
 #pragma unroll
-      for (int r = 0; r < kRegN; ++r) {
-        const float xv = sx[ty + kThreadsY * r][k];
+      for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < kRegM; ++c) {
-          const float diff = xv - zv[c];
-          s = fmaf(acc[r][c] * diff, diff, s);
+        for (int c = 0; c < 4; ++c) {
+          const float diff = xv[r] - zv[c];
+          s = fmaf(e[r][c] * diff, diff, s);
         }
-      }
       gk[k] = s;
     }
-    const int m = d - k0 < kChunkD ? d - k0 : kChunkD;
-    // block_sum_store ends with a barrier, so the next stage is safe.
-    block_sum_store(gk, m, red, out + k0);
   }
 }
 
-// out[w] = sum_b partials[b * width + w], in float64, in a fixed order.
+// Adds the warp's sums of gk[0 .. kd) to its float64 row: wred[k0 + k].
+__device__ __forceinline__ void warp_add(double* wred,
+                                         const float (&gk)[kChunkD], int k0,
+                                         int kd) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < kChunkD; ++k) {
+    if (k < kd) {
+      const double s = warp_sum(static_cast<double>(gk[k]));
+      if (lane == 0) wred[k0 + k] += s;
+    }
+  }
+}
+
+// The Gbar tiles of pair (I, J), and the xs rows of I and J, into one ring
+// stage; every thread calls it, and it commits one cp.async group.
+template <bool Tma>
+__device__ __forceinline__ void issue_pair(float* stage, uint64_t* bar,
+                                           const Walker& w,
+                                           const CUtensorMap* gmap,
+                                           const float* gbar, const float* xs,
+                                           int n, int d, int kd) {
+  if (w.valid()) {
+    const int r0 = w.i * kT;
+    const int c0 = w.j * kT;
+    const bool mirror = w.i != w.j;
+    float* ga = stage;
+    float* gb = stage + kTileFloats;
+    if (Tma) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(bar, (mirror ? 2 : 1) * kTileFloats * sizeof(float));
+        tma_load_box(ga, gmap, bar, c0, r0);
+        tma_load_box(ga + kBoxFloats, gmap, bar, c0 + kBoxCols, r0);
+        if (mirror) {
+          tma_load_box(gb, gmap, bar, r0, c0);
+          tma_load_box(gb + kBoxFloats, gmap, bar, r0 + kBoxCols, c0);
+        }
+      }
+    } else {
+      for (int e = threadIdx.x; e < (mirror ? 2 : 1) * kTileFloats;
+           e += kThreads) {
+        const int which = e / kTileFloats;
+        const int r = (e >> 6) & (kT - 1);
+        const int c = e & (kT - 1);
+        const int gr = (which ? c0 : r0) + r;
+        const int gc = (which ? r0 : c0) + c;
+        const bool ok = gr < n && gc < n;
+        cp_async4((which ? gb : ga) + swz(r, c),
+                  ok ? gbar + static_cast<long long>(gr) * n + gc : gbar, ok);
+      }
+    }
+    stage_rows_async<kT>(stage + 2 * kTileFloats, xs, n, d, r0, 0, kd);
+    stage_rows_async<kT>(stage + 2 * kTileFloats + kXsFloats, xs, n, d, c0,
+                         0, kd);
+  }
+  cp_async_commit();
+}
+
+template <int P, bool Iso, bool Tma, int KD>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+kernel_vjp(const __grid_constant__ CUtensorMap gmap,
+           const float* __restrict__ xs, const float* __restrict__ gbar,
+           const float* __restrict__ sf2p, const float* __restrict__ alphap,
+           double* __restrict__ partials, int n, int d, int width) {
+  extern __shared__ unsigned char smem_raw[];
+  float* sm = align1024(smem_raw);
+  float* extra = sm + kExtraOffset;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sm + kBarOffset);
+  double* red = reinterpret_cast<double*>(sm + kRedOffset);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  double* wred = red + warp * width;
+  int a, b;
+  quad_of(tid, a, b);
+  // The specialised instantiations bound the loops over the dimensions of
+  // the chunk at compile time (and nothing else: a compile-time D lets the
+  // compiler hoist both passes' loads and spill).
+  const int kd = KD ? KD : min(d, kChunkD);
+  const bool multi = d > kChunkD;
+  const float sf2 = *sf2p;
+  const float alpha = *alphap;
+  const int nt = (n + kT - 1) / kT;
+  const long long step = gridDim.x;
+
+  for (int i = tid; i < kWarps * width; i += kThreads) red[i] = 0.0;
+  if (Tma && tid == 0) {
+    mbar_init(&bars[0], 1);
+    mbar_init(&bars[1], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  Walker cur(nt, nt, true, blockIdx.x);
+  Walker pre = cur;
+  for (int s = 0; s < 2; ++s) {
+    issue_pair<Tma>(sm + s * kStageFloats, &bars[s], pre, &gmap, gbar, xs, n,
+                    d, kd);
+    pre.advance(step);
+  }
+
+  double acc_k[kChunkD];
+#pragma unroll
+  for (int k = 0; k < kChunkD; ++k) acc_k[k] = 0.0;
+  double acc_gk = 0.0, acc_t2 = 0.0, acc_rq = 0.0;
+
+  for (int t = 0; cur.valid(); ++t, cur.advance(step)) {
+    const int s = t & 1;
+    float* stage = sm + s * kStageFloats;
+    const float* ga = stage;
+    const float* gb = stage + kTileFloats;
+    const float* si = stage + 2 * kTileFloats;
+    const float* sj = si + kXsFloats;
+    const int r0 = cur.i * kT;
+    const int c0 = cur.j * kT;
+
+    cp_async_wait<1>();
+    if (Tma) mbar_wait(&bars[s], (t >> 1) & 1);
+    __syncthreads();
+
+    // Gbar_ij (+ Gbar_ji for an off-diagonal pair) of the thread's block.
+    float g[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float4 v = *reinterpret_cast<const float4*>(ga + swz(4 * a + r, 4 * b));
+      g[r][0] = v.x;
+      g[r][1] = v.y;
+      g[r][2] = v.z;
+      g[r][3] = v.w;
+    }
+    if (cur.i != cur.j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(gb + swz(4 * b + c, 4 * a));
+        g[0][c] += v.x;
+        g[1][c] += v.y;
+        g[2][c] += v.z;
+        g[3][c] += v.w;
+      }
+    }
+
+    // Pass 1: t2 by direct differences.
+    float t2[1][4][4];
+    float (&e)[4][4] = t2[0];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) e[r][c] = 0.0f;
+    add_sq_dist<1>(t2, si, kT, sj, kT, a, b, kd);
+    for (int k0 = kChunkD; k0 < d; k0 += kChunkD) {
+      const int kc = min(kChunkD, d - k0);
+      stage_rows_sync<kT>(extra, xs, n, d, r0, k0, kc);
+      stage_rows_sync<kT>(extra + kXsFloats, xs, n, d, c0, k0, kc);
+      __syncthreads();
+      add_sq_dist<1>(t2, extra, kT, extra + kXsFloats, kT, a, b, kc);
+      __syncthreads();
+    }
+
+    // K, P and E per entry; e[r][c] turns from t2 into E.
+    float s_gk = 0.0f, s_t2 = 0.0f, s_rq = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float q =
+            r0 + 4 * a + r == c0 + 4 * b + c ? 0.0f : fmaxf(e[r][c], 0.0f);
+        float kv, p;
+        value_and_slope<P>(q, sf2, alpha, kv, p);
+        const float gg = g[r][c];
+        const float gkv = gg * kv;
+        s_gk += gkv;
+        e[r][c] = -2.0f * gg * p;
+        if (Iso) s_t2 = fmaf(e[r][c], q, s_t2);
+        if (P == kRQ) {
+          const float mm = 1.0f + 0.5f * q / alpha;
+          s_rq = fmaf(gkv, 0.5f * q / mm - alpha * logf(mm), s_rq);
+        }
+      }
+    acc_gk += s_gk;
+    if (Iso) acc_t2 += s_t2;
+    if (P == kRQ) acc_rq += s_rq;
+
+    // Pass 2 (ARD): g_k = sum E (xs_ik - xs_jk)^2 over the staged chunk,
+    // then over each further chunk.
+    if (!Iso) {
+      float gk[kChunkD];
+      ard_sums(gk, e, si, sj, a, b, kd);
+      if (!multi) {
+#pragma unroll
+        for (int k = 0; k < kChunkD; ++k)
+          if (k < kd) acc_k[k] += static_cast<double>(gk[k]);
+      } else {
+        warp_add(wred, gk, 0, kd);
+        for (int k0 = kChunkD; k0 < d; k0 += kChunkD) {
+          const int kc = min(kChunkD, d - k0);
+          stage_rows_sync<kT>(extra, xs, n, d, r0, k0, kc);
+          stage_rows_sync<kT>(extra + kXsFloats, xs, n, d, c0, k0, kc);
+          __syncthreads();
+          ard_sums(gk, e, extra, extra + kXsFloats, a, b, kc);
+          warp_add(wred, gk, k0, kc);
+          __syncthreads();
+        }
+      }
+    }
+
+    // Every thread is past its reads of this ring stage.
+    __syncthreads();
+    issue_pair<Tma>(stage, &bars[s], pre, &gmap, gbar, xs, n, d, kd);
+    pre.advance(step);
+  }
+
+  // The block's row: [sum E t2, 2 sum Gbar K] (iso) or [g_0 .. g_{D-1},
+  // 2 sum Gbar K, (rq) the alpha term], warp sums in float64, then the
+  // warps in order.
+  if (Iso) {
+    const double v0 = warp_sum(acc_t2);
+    const double v1 = warp_sum(2.0 * acc_gk);
+    if (lane == 0) {
+      wred[0] += v0;
+      wred[1] += v1;
+    }
+  } else {
+    if (!multi) {
+#pragma unroll
+      for (int k = 0; k < kChunkD; ++k) {
+        if (k < kd) {
+          const double v = warp_sum(acc_k[k]);
+          if (lane == 0) wred[k] += v;
+        }
+      }
+    }
+    const double v = warp_sum(2.0 * acc_gk);
+    if (lane == 0) wred[d] += v;
+    if (P == kRQ) {
+      const double w = warp_sum(acc_rq);
+      if (lane == 0) wred[d + 1] += w;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < width; i += kThreads) {
+    double total = 0.0;
+    for (int w = 0; w < kWarps; ++w) total += red[w * width + i];
+    partials[static_cast<long long>(blockIdx.x) * width + i] = total;
+  }
+}
+
+// out[w] = sum_b partials[b * width + w], in float64 in a fixed order,
+// rounded once to float32.
 __global__ void __launch_bounds__(kReduceThreads)
 reduce_partials(const double* __restrict__ partials, long long blocks,
-                int width, double* __restrict__ out) {
+                int width, float* __restrict__ out) {
   __shared__ double s[kReduceThreads];
   const int w = blockIdx.x;
   double t = 0.0;
@@ -264,34 +422,48 @@ reduce_partials(const double* __restrict__ partials, long long blocks,
     if (threadIdx.x < half) s[threadIdx.x] += s[threadIdx.x + half];
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[w] = s[0];
-}
-
-dim3 grid_of(long long n) {
-  return dim3(static_cast<unsigned>((n + kTileM - 1) / kTileM),
-              static_cast<unsigned>((n + kTileN - 1) / kTileN));
+  if (threadIdx.x == 0) out[w] = static_cast<float>(s[0]);
 }
 
 template <int P, bool Iso>
-void launch(const float* xs, const float* gbar, const float* params,
-            double* partials, long long n, int d, int width,
-            cudaStream_t stream) {
-  kernel_vjp<P, Iso><<<grid_of(n), dim3(kThreadsX, kThreadsY), 0, stream>>>(
-      xs, gbar, params, partials, n, d, width);
+int launch(int tma, const float* xs, const float* gbar, const float* sf2,
+           const float* alpha, double* partials, int n, int d, int width,
+           long long blocks, cudaStream_t stream) {
+  CUtensorMap map{};
+  if (tma) {
+    const int rc = make_tile_map(&map, gbar, n, n);
+    if (rc != 0) return rc;
+  }
+  auto pick = [d](auto k0, auto k8, auto k10) {
+    return specialised_d(d) == 8 ? k8 : (specialised_d(d) == 10 ? k10 : k0);
+  };
+  auto kern = tma ? pick(kernel_vjp<P, Iso, true, 0>,
+                         kernel_vjp<P, Iso, true, 8>,
+                         kernel_vjp<P, Iso, true, 10>)
+                  : pick(kernel_vjp<P, Iso, false, 0>,
+                         kernel_vjp<P, Iso, false, 8>,
+                         kernel_vjp<P, Iso, false, 10>);
+  const size_t smem = smem_bytes(width);
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      map, xs, gbar, sf2, alpha, partials, n, d, width);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest N one launch covers (grid.y is at most 65535 blocks).
-long long kernel_vjp_max_rows() { return 65535LL * kTileN; }
+// Dynamic shared memory a block takes for a gradient row of `width`.
+long long kernel_vjp_smem_bytes(int width) { return smem_bytes(width); }
 
-// Rows of float64 partials the launch writes for N points (one per block).
-long long kernel_vjp_blocks(long long n) {
-  const dim3 g = grid_of(n);
-  return static_cast<long long>(g.x) * g.y;
-}
+// Side of the square tiles, whose unordered pairs the kernel walks.
+int kernel_vjp_tile() { return kT; }
+
+// Blocks (rows of float64 partials) of a launch over `pairs` tile pairs.
+long long kernel_vjp_grid(long long pairs) { return persistent_grid(pairs); }
 
 // Width of the gradient row: 2 (iso), D + 2 (rq) or D + 1.
 int kernel_vjp_width(int profile, int iso, int d) {
@@ -299,38 +471,45 @@ int kernel_vjp_width(int profile, int iso, int d) {
 }
 
 // Launches the gradient contraction and its reduction on `stream`.  `xs`
-// (n, d) and `gbar` (n, n) are contiguous float32, `params` a device array
-// [sf2, alpha], `partials` float64 scratch of kernel_vjp_blocks(n) rows of
-// kernel_vjp_width(...) values, `out` float64 of that width.  Returns
+// (n, d) and `gbar` (n, n) are contiguous float32, `sf2` and `alpha` point
+// to one float each on the device, `partials` is float64 scratch of
+// `blocks` = kernel_vjp_grid(pairs) rows of kernel_vjp_width(...) values,
+// `out` float32 of that width.  `tma` selects the TMA loads (n % 4 == 0 and
+// a 16-byte-aligned gbar) or the 4-byte cp.async loads.  Returns
 // cudaGetLastError() after the launches (0 on success), or
-// cudaErrorInvalidValue for an unknown profile or an isotropic rq.
-int kernel_vjp_launch(int profile, int iso, const float* xs, const float* gbar,
-                      const float* params, double* partials, double* out,
-                      long long n, int d, void* stream) {
+// cudaErrorInvalidValue for an unknown profile, an isotropic rq, or
+// arguments the kernel does not take.
+int kernel_vjp_launch(int profile, int iso, int tma, const float* xs,
+                      const float* gbar, const float* sf2, const float* alpha,
+                      double* partials, float* out, long long n, int d,
+                      long long blocks, void* stream) {
+  if (n <= 0 || d <= 0 || n >= (1LL << 31) || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int width = kernel_vjp_width(profile, iso, d);
+  const int ni = static_cast<int>(n);
+  int rc;
   if (iso) {
     switch (profile) {
-      case kSE: launch<kSE, true>(xs, gbar, params, partials, n, d, width, s); break;
-      case kM1: launch<kM1, true>(xs, gbar, params, partials, n, d, width, s); break;
-      case kM3: launch<kM3, true>(xs, gbar, params, partials, n, d, width, s); break;
-      case kM5: launch<kM5, true>(xs, gbar, params, partials, n, d, width, s); break;
+      case kSE: rc = launch<kSE, true>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kM1: rc = launch<kM1, true>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kM3: rc = launch<kM3, true>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kM5: rc = launch<kM5, true>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {
     switch (profile) {
-      case kSE: launch<kSE, false>(xs, gbar, params, partials, n, d, width, s); break;
-      case kM1: launch<kM1, false>(xs, gbar, params, partials, n, d, width, s); break;
-      case kM3: launch<kM3, false>(xs, gbar, params, partials, n, d, width, s); break;
-      case kM5: launch<kM5, false>(xs, gbar, params, partials, n, d, width, s); break;
-      case kRQ: launch<kRQ, false>(xs, gbar, params, partials, n, d, width, s); break;
+      case kSE: rc = launch<kSE, false>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kM1: rc = launch<kM1, false>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kM3: rc = launch<kM3, false>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kM5: rc = launch<kM5, false>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
+      case kRQ: rc = launch<kRQ, false>(tma, xs, gbar, sf2, alpha, partials, ni, d, width, blocks, s); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const int rc = static_cast<int>(cudaGetLastError());
   if (rc != 0) return rc;
-  reduce_partials<<<width, kReduceThreads, 0, s>>>(
-      partials, kernel_vjp_blocks(n), width, out);
+  reduce_partials<<<width, kReduceThreads, 0, s>>>(partials, blocks, width,
+                                                   out);
   return static_cast<int>(cudaGetLastError());
 }
 

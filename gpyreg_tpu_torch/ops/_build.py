@@ -4,9 +4,10 @@ Each source ``gpyreg_tpu_torch/csrc/<name>.cu`` is compiled at first use
 with ``nvcc`` into its own shared library with a plain C interface,
 written to ``gpyreg_tpu_torch/build/`` (listed in ``.gitignore``), and
 loaded with ``ctypes``: ``kernel_tile`` (the forward tile) and
-``kernel_vjp`` (its one-pass gradient).  A library's file name carries a
-hash of its source, so an edited kernel is rebuilt and a stale build is
-never loaded.  :func:`build_all` starts one ``nvcc`` per source, all at
+``kernel_vjp`` (its one-pass gradient); both include the shared header
+``csrc/tile_common.cuh``.  A library's file name carries a hash of its
+source and of the headers, so an edited kernel is rebuilt and a stale
+build is never loaded.  :func:`build_all` starts one ``nvcc`` per source, all at
 once.  Nothing here runs at import: the CPU-only test environment has no
 ``nvcc``.
 """
@@ -49,8 +50,11 @@ def build(name: str) -> str:
     that file exists; return its path.  The compiler's output (including
     ``-Xptxas -v``) is kept beside it as ``lib<name>-<hash>.log``."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = f"lib{name}-{digest.hexdigest()[:12]}"
     lib = os.path.join(BUILD_DIR, stem + ".so")
     if os.path.exists(lib):
@@ -97,7 +101,8 @@ def kernel_tile_lib():
     p = ctypes.c_void_p
     lib.kernel_tile_launch.argtypes = [
         ctypes.c_int,  # profile
-        p, p, p, p,  # xs, zs, params, out
+        ctypes.c_int,  # tma
+        p, p, p, p, p,  # xs, zs, sf2, alpha, out
         ctypes.c_longlong,  # n
         ctypes.c_longlong,  # m
         ctypes.c_int,  # d
@@ -105,8 +110,8 @@ def kernel_tile_lib():
         p,  # stream
     ]
     lib.kernel_tile_launch.restype = ctypes.c_int
-    lib.kernel_tile_max_rows.argtypes = []
-    lib.kernel_tile_max_rows.restype = ctypes.c_longlong
+    lib.kernel_tile_smem_bytes.argtypes = []
+    lib.kernel_tile_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -118,16 +123,20 @@ def kernel_vjp_lib():
     lib.kernel_vjp_launch.argtypes = [
         ctypes.c_int,  # profile
         ctypes.c_int,  # iso
-        p, p, p, p, p,  # xs, gbar, params, partials, out
+        ctypes.c_int,  # tma
+        p, p, p, p, p, p,  # xs, gbar, sf2, alpha, partials, out
         ctypes.c_longlong,  # n
         ctypes.c_int,  # d
+        ctypes.c_longlong,  # blocks
         p,  # stream
     ]
     lib.kernel_vjp_launch.restype = ctypes.c_int
-    lib.kernel_vjp_blocks.argtypes = [ctypes.c_longlong]
-    lib.kernel_vjp_blocks.restype = ctypes.c_longlong
+    lib.kernel_vjp_tile.argtypes = []
+    lib.kernel_vjp_tile.restype = ctypes.c_int
+    lib.kernel_vjp_grid.argtypes = [ctypes.c_longlong]
+    lib.kernel_vjp_grid.restype = ctypes.c_longlong
     lib.kernel_vjp_width.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
     lib.kernel_vjp_width.restype = ctypes.c_int
-    lib.kernel_vjp_max_rows.argtypes = []
-    lib.kernel_vjp_max_rows.restype = ctypes.c_longlong
+    lib.kernel_vjp_smem_bytes.argtypes = [ctypes.c_int]
+    lib.kernel_vjp_smem_bytes.restype = ctypes.c_longlong
     return lib

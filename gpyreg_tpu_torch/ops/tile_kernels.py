@@ -9,14 +9,21 @@ Port of ``gpyreg_tpu/ops/pallas_kernels.py``: ``_make_kernel`` /
 is ``ops.kernels.radial_profile``, shared with the plain composition.
 The forward tile is the hand-written CUDA kernel ``csrc/kernel_tile.cu``;
 the gradient tile is ``csrc/kernel_vjp.cu``.  Both compute squared
-distances by direct differences (see their headers).
+distances by direct differences, walk square tiles with a persistent grid
+in the order :func:`tile_pairs` lists, and fold a self-covariance plane by
+symmetry (see their headers).  :func:`vjp_tile_folded_ref` is the
+gradient's folded contraction in plain PyTorch.
 
 :func:`kernel_cross` and :func:`vjp_tile` launch their kernel for a CUDA
 tensor and raise on anything the kernel does not take; for a tensor on
 the CPU they return :func:`kernel_cross_ref` and :func:`vjp_tile_ref`,
-the same functions in plain PyTorch.  Each launch adds one to
-``LAUNCHES["self"]`` (a ``zero_diag`` build), ``LAUNCHES["cross"]`` or
-``LAUNCHES["vjp"]``.
+the same functions in plain PyTorch.  Each kernel has two paths, chosen
+by shape: TMA copies where the matrix it stores or reads has a row stride
+that is a multiple of 16 bytes (M % 4 == 0 for the kernel tile, N % 4 == 0
+and a 16-byte-aligned cotangent for the gradient tile), plain copies
+otherwise.  Each launch adds one to ``LAUNCHES["self"]`` (a ``zero_diag``
+build), ``LAUNCHES["cross"]`` or ``LAUNCHES["vjp"]`` on the TMA path, and
+to the same key with ``_unaligned`` on the other.
 
 Left out for good: the 256-row tile padding (:146-149, :289-294; the
 kernels mask their ragged edges), the ``INTERPRET`` switch (:35, CUDA has
@@ -26,6 +33,9 @@ gradient (:264-277, a TPU layout) and the ``se_kernel_fused`` alias
 (:387-389).
 """
 
+import contextlib
+import functools
+
 import torch
 
 from ._build import kernel_tile_lib, kernel_vjp_lib
@@ -33,15 +43,46 @@ from .kernels import cov_params, radial_profile, sq_dist
 
 PROFILES = ("se", "m1", "m3", "m5", "rq")
 
+# Side of the kernels' square tiles (kT in csrc/tile_common.cuh).
+TILE = 64
+
 # Kernel launches since the last reset_launches(): "self" counts
 # self-covariance builds (zero_diag), "cross" every other build, "vjp"
-# the gradient contractions.
-LAUNCHES = {"self": 0, "cross": 0, "vjp": 0}
+# the gradient contractions, each on its TMA path; the "_unaligned" keys
+# count the same launches on the path without TMA.
+LAUNCHES = {"self": 0, "cross": 0, "vjp": 0,
+            "self_unaligned": 0, "cross_unaligned": 0, "vjp_unaligned": 0}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _advance(i, j, step, nt):
+    """Tile pair (i, j), i <= j < nt, ``step`` places further in row-major
+    order: the walk of ``Walker`` in csrc/tile_common.cuh."""
+    off = j - i + step
+    while i < nt and off >= nt - i:
+        off -= nt - i
+        i += 1
+    return i, i + off
+
+
+@functools.lru_cache(maxsize=8)
+def tile_pairs(n, T, start=0, step=1):
+    """The unordered tile pairs (I, J), I <= J, of an n x n plane cut into
+    T x T tiles, in the order the kernels walk them: row-major over the
+    upper triangle.  With ``start`` and ``step``, the pairs that one block
+    of a persistent launch takes (pair ``start``, then every ``step``-th).
+    Pair (I, J) covers the tile (I, J) and, for I < J, its mirror (J, I)."""
+    nt = -(-n // T)
+    pairs = []
+    i, j = _advance(0, 0, start, nt)
+    while i < nt:
+        pairs.append((i, j))
+        i, j = _advance(i, j, step, nt)
+    return tuple(pairs)
 
 
 def kernel_cross_ref(base, Xs, Zs, sf2, alpha=1.0, zero_diag=False):
@@ -54,7 +95,29 @@ def kernel_cross_ref(base, Xs, Zs, sf2, alpha=1.0, zero_diag=False):
 
 
 def _param(v, device):
+    """One float32 on ``device``, as the kernels read ``sf2`` and
+    ``alpha``: a one-element float32 tensor already there is used as it
+    is (no copy), anything else (a Python float) is copied over."""
+    if (isinstance(v, torch.Tensor) and v.dtype == torch.float32
+            and v.device == device and v.numel() == 1):
+        return v
     return torch.as_tensor(v, dtype=torch.float32, device=device).reshape(1)
+
+
+def _on_device(device):
+    """Context for a launch on ``device``: none when it is already the
+    current device (switching costs host time on every call)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream(device):
+    """The raw handle of ``device``'s current stream.  The private call
+    reads it; ``torch.cuda.current_stream().cuda_stream`` builds a Stream
+    object first, microseconds of host time on every launch, which a
+    kernel of a few tens of microseconds (N = 4096) does not hide."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def kernel_cross(base, Xs, Zs, sf2, alpha=1.0, zero_diag=False):
@@ -63,8 +126,10 @@ def kernel_cross(base, Xs, Zs, sf2, alpha=1.0, zero_diag=False):
     ``Xs`` (N, D) and ``Zs`` (M, D) are already divided by the
     lengthscales; ``sf2`` and ``alpha`` are floats or one-element
     tensors.  ``zero_diag`` marks a self-covariance build (``Zs`` is
-    ``Xs``).  On the CPU this is :func:`kernel_cross_ref`; a CUDA tensor
-    launches ``csrc/kernel_tile.cu`` on the current stream, or raises.
+    ``Xs``), which the kernel folds by symmetry.  On the CPU this is
+    :func:`kernel_cross_ref`; a CUDA tensor launches
+    ``csrc/kernel_tile.cu`` on the current stream (the TMA store when
+    M % 4 == 0), or raises.
     """
     if Xs.device.type == "cpu":
         return kernel_cross_ref(base, Xs, Zs, sf2, alpha, zero_diag)
@@ -90,21 +155,25 @@ def kernel_cross(base, Xs, Zs, sf2, alpha=1.0, zero_diag=False):
     M = Zs.shape[0]
     if D == 0:
         raise ValueError("kernel_cross takes D > 0")
-    lib = kernel_tile_lib()
-    if N > lib.kernel_tile_max_rows():
-        raise ValueError(f"kernel_cross takes at most "
-                         f"{lib.kernel_tile_max_rows()} rows, got {N}")
-    params = torch.cat([_param(sf2, Xs.device), _param(alpha, Xs.device)])
+    if zero_diag and (Zs.data_ptr() != Xs.data_ptr() or M != N):
+        raise ValueError("kernel_cross with zero_diag builds K(Xs, Xs): "
+                         "pass Xs as Zs")
     out = torch.empty((N, M), dtype=torch.float32, device=Xs.device)
     if N == 0 or M == 0:
         return out
-    with torch.cuda.device(Xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    lib = kernel_tile_lib()
+    tma = M % 4 == 0
+    sf2 = _param(sf2, Xs.device)
+    alpha = _param(alpha, Xs.device)
+    with _on_device(Xs.device):
+        stream = _stream(Xs.device)
         rc = lib.kernel_tile_launch(
             PROFILES.index(base),
+            int(tma),
             Xs.data_ptr(),
             Zs.data_ptr(),
-            params.data_ptr(),
+            sf2.data_ptr(),
+            alpha.data_ptr(),
             out.data_ptr(),
             N,
             M,
@@ -114,7 +183,8 @@ def kernel_cross(base, Xs, Zs, sf2, alpha=1.0, zero_diag=False):
         )
     if rc != 0:
         raise RuntimeError(f"kernel_tile launch failed with CUDA error {rc}")
-    LAUNCHES["self" if zero_diag else "cross"] += 1
+    LAUNCHES[("self" if zero_diag else "cross")
+             + ("" if tma else "_unaligned")] += 1
     return out
 
 
@@ -180,18 +250,56 @@ def vjp_tile_ref(base, iso, Xs, Gbar, sf2, alpha=1.0):
     return torch.stack(parts)
 
 
+def vjp_tile_folded_ref(base, iso, Xs, Gbar, sf2, alpha=1.0, T=TILE):
+    """:func:`vjp_tile_ref` as the gradient kernel contracts it: over the
+    tile pairs of :func:`tile_pairs`, an off-diagonal pair (I, J) takes
+    each of its entries once with ``Gbar_ij + Gbar_ji`` (every other term
+    is symmetric in (i, j)), a diagonal tile takes each entry once with
+    ``Gbar_ij``.  An identity of the sum for any ``Gbar``; plain PyTorch,
+    one tile pair at a time."""
+    sf2 = torch.as_tensor(sf2, dtype=Xs.dtype, device=Xs.device)
+    alpha = torch.as_tensor(alpha, dtype=Xs.dtype, device=Xs.device)
+    N, D = Xs.shape
+    width = 2 if iso else (D + 2 if base == "rq" else D + 1)
+    parts = torch.zeros((width,), dtype=Xs.dtype, device=Xs.device)
+    for I, J in tile_pairs(N, T):
+        ri, rj = slice(I * T, (I + 1) * T), slice(J * T, (J + 1) * T)
+        g = Gbar[ri, rj]
+        if I != J:
+            g = g + Gbar[rj, ri].T
+        diffs = [Xs[ri, k, None] - Xs[None, rj, k] for k in range(D)]
+        t2 = torch.zeros_like(g)
+        for d in diffs:
+            t2.addcmul_(d, d)
+        GK = g * radial_profile(base, t2, sf2, alpha)
+        E = -2.0 * g * radial_slope(base, t2, sf2, alpha)
+        if iso:
+            parts[0] += torch.sum(E * t2)
+        else:
+            for k, d in enumerate(diffs):
+                parts[k] += torch.sum(E * d * d)
+        parts[width - (2 if base == "rq" else 1)] += 2.0 * torch.sum(GK)
+        if base == "rq":
+            M = 1.0 + 0.5 * t2 / alpha
+            parts[-1] += torch.sum(GK * (0.5 * t2 / M - alpha * torch.log(M)))
+    return parts
+
+
 def vjp_tile(base, iso, Xs, Gbar, sf2, alpha=1.0):
     """The gradient row of :func:`vjp_tile_ref`, in ``Gbar``'s dtype.
 
     ``Xs`` (N, D) is already divided by the lengthscales; ``Gbar``
     (N, N) is any matrix (not assumed symmetric).  On the CPU this is
     :func:`vjp_tile_ref`; a CUDA tensor launches ``csrc/kernel_vjp.cu``
-    (the contraction, then a fixed-order float64 sum of its per-block
-    partials) on the current stream, or raises.
+    (the folded contraction of :func:`vjp_tile_folded_ref`, one row of
+    float64 partials per block of its persistent grid, then a fixed-order
+    sum of the rows) on the current stream, or raises.  The TMA loads
+    need N % 4 == 0 and a 16-byte-aligned ``Gbar``; other shapes take the
+    path without TMA.
 
-    Every term is symmetric in (i, j): t2_ij and t2_ji are the same
-    float, summed in the same order.  So ``Gbar`` and its transpose give
-    the same gradient, and a column-major ``Gbar`` (what
+    Every term but ``Gbar`` is symmetric in (i, j): t2_ij and t2_ji are
+    the same float, summed in the same order.  So ``Gbar`` and its
+    transpose give the same gradient, and a column-major ``Gbar`` (what
     ``torch.cholesky_inverse`` returns on the card) is read as the
     row-major transpose it lies in, without a 1 GB copy at N = 16384.
     """
@@ -224,35 +332,38 @@ def vjp_tile(base, iso, Xs, Gbar, sf2, alpha=1.0):
     if D == 0:
         raise ValueError("vjp_tile takes D > 0")
     lib = kernel_vjp_lib()
-    if N > lib.kernel_vjp_max_rows():
-        raise ValueError(f"vjp_tile takes at most {lib.kernel_vjp_max_rows()} "
-                         f"rows, got {N}")
     prof = PROFILES.index(base)
     width = lib.kernel_vjp_width(prof, int(bool(iso)), D)
     if N == 0:
         return torch.zeros((width,), dtype=torch.float32, device=Xs.device)
-    params = torch.cat([_param(sf2, Xs.device), _param(alpha, Xs.device)])
-    partials = torch.empty((lib.kernel_vjp_blocks(N), width),
-                           dtype=torch.float64, device=Xs.device)
-    out = torch.empty((width,), dtype=torch.float64, device=Xs.device)
-    with torch.cuda.device(Xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    tma = N % 4 == 0 and Gbar.data_ptr() % 16 == 0
+    sf2 = _param(sf2, Xs.device)
+    alpha = _param(alpha, Xs.device)
+    out = torch.empty((width,), dtype=torch.float32, device=Xs.device)
+    with _on_device(Xs.device):
+        blocks = lib.kernel_vjp_grid(len(tile_pairs(N, lib.kernel_vjp_tile())))
+        partials = torch.empty((blocks, width), dtype=torch.float64,
+                               device=Xs.device)
+        stream = _stream(Xs.device)
         rc = lib.kernel_vjp_launch(
             prof,
             int(bool(iso)),
+            int(tma),
             Xs.data_ptr(),
             Gbar.data_ptr(),
-            params.data_ptr(),
+            sf2.data_ptr(),
+            alpha.data_ptr(),
             partials.data_ptr(),
             out.data_ptr(),
             N,
             D,
+            blocks,
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"kernel_vjp launch failed with CUDA error {rc}")
-    LAUNCHES["vjp"] += 1
-    return out.to(torch.float32)
+    LAUNCHES["vjp" if tma else "vjp_unaligned"] += 1
+    return out
 
 
 def _scaled_params(base, iso, hyp_cov, X):

@@ -28,6 +28,18 @@ TOL = 1e-5
 VJP_RTOL = 1e-4
 
 
+# Shapes around the tile (64) and schedule edges: N in (1, T-1, T, T+1,
+# 2T+3), N % 4 == 0 and != 0 (the TMA path and the path without it), and
+# D in (1, 8, 10, 16, 17, 33) (D = 8 and 10 have their own
+# instantiations; D > 16 stages more than one chunk).
+EDGE_SHAPES = [(1, 1, 1), (63, 64, 8), (64, 63, 10), (65, 131, 16),
+               (131, 65, 17), (128, 132, 33), (132, 128, 8), (129, 130, 10)]
+
+
+def _key(kind, m):
+    return kind if m % 4 == 0 else kind + "_unaligned"
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -55,8 +67,10 @@ def test_kernel_matches_plain(cuda, base, shape):
     K = TK.kernel_cross(base, X, Z, sf2, alpha)
     K_self = TK.kernel_cross(base, X, X, sf2, alpha, zero_diag=True)
     torch.cuda.synchronize()
-    assert TK.LAUNCHES["cross"] == before["cross"] + 1
-    assert TK.LAUNCHES["self"] == before["self"] + 1
+    # Each launch is counted on the key of its store path (TMA for a row
+    # stride that is a multiple of 16 bytes).
+    assert TK.LAUNCHES[_key("cross", m)] == before[_key("cross", m)] + 1
+    assert TK.LAUNCHES[_key("self", n)] == before[_key("self", n)] + 1
     ref = TK.kernel_cross_ref(base, X, Z, sf2, alpha)
     ref_self = TK.kernel_cross_ref(base, X, X, sf2, alpha, zero_diag=True)
     assert K.shape == (n, m) and K_self.shape == (n, n)
@@ -64,6 +78,45 @@ def test_kernel_matches_plain(cuda, base, shape):
     assert torch.max(torch.abs(K_self - ref_self)).item() < TOL
     # The self-distance diagonal is exactly zero: K_ii == sf2.
     assert torch.all(torch.diagonal(K_self) == K_self.new_tensor(sf2))
+
+
+@pytest.mark.parametrize("base", TK.PROFILES)
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+def test_kernel_at_tile_edges_and_both_paths(cuda, base, shape):
+    """Cross and folded self builds at the tile edges on both store paths:
+    each within TOL of the plain version, the self build bitwise
+    symmetric with its diagonal exactly sf2, each launch counted on the
+    key of its path."""
+    n, m, d = shape
+    X, Z = _inputs(n, m, d, 3, cuda)
+    sf2 = torch.tensor(1.3, device=cuda)
+    alpha = torch.tensor(0.7, device=cuda)
+    TK.reset_launches()
+    K = TK.kernel_cross(base, X, Z, sf2, alpha)
+    K_self = TK.kernel_cross(base, X, X, sf2, alpha, zero_diag=True)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(TK.LAUNCHES, 0)
+    want[_key("cross", m)] += 1
+    want[_key("self", n)] += 1
+    assert TK.LAUNCHES == want
+    ref = TK.kernel_cross_ref(base, X, Z, sf2, alpha)
+    ref_self = TK.kernel_cross_ref(base, X, X, sf2, alpha, zero_diag=True)
+    assert torch.max(torch.abs(K - ref)).item() < TOL
+    assert torch.max(torch.abs(K_self - ref_self)).item() < TOL
+    assert torch.equal(K_self, K_self.T)
+    assert torch.all(torch.diagonal(K_self) == sf2)
+
+
+def test_self_build_is_bitwise_symmetric_at_a_path_shape(cuda):
+    """The training path's self-covariance (N = 4096, D = 8) and its
+    ragged neighbour N = 4100: bitwise symmetric, diagonal exactly sf2."""
+    for n in (4096, 4100):
+        X, _ = _inputs(n, 1, 8, 4, cuda)
+        K = TK.kernel_cross("se", X, X, 1.3, 0.7, zero_diag=True)
+        assert torch.equal(K, K.T)
+        assert torch.all(torch.diagonal(K) == K.new_tensor(1.3))
+        ref = TK.kernel_cross_ref("se", X, X, 1.3, 0.7, zero_diag=True)
+        assert torch.max(torch.abs(K - ref)).item() < TOL
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -77,6 +130,9 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     empty = torch.zeros((8, 0), device=cuda)
     with pytest.raises(ValueError):
         TK.kernel_cross("se", empty, empty, 1.0)
+    # The folded self build reads Xs only: Zs must be the same tensor.
+    with pytest.raises(ValueError):
+        TK.kernel_cross("se", X, X.clone(), 1.0, zero_diag=True)
 
 
 def test_self_fused_backward_matches_plain(cuda):
@@ -118,17 +174,72 @@ def test_vjp_kernel_matches_plain(cuda, cov, shape):
     X[7] = X[n // 2]
     G = torch.as_tensor(np.random.default_rng(6).normal(size=(n, n)),
                         dtype=torch.float32, device=cuda)
-    before = TK.LAUNCHES["vjp"]
+    key = "vjp" if n % 4 == 0 else "vjp_unaligned"
+    before = TK.LAUNCHES[key]
     g = TK.vjp_tile(base, iso, X, G, 1.3, 0.7)
     g2 = TK.vjp_tile(base, iso, X, G, 1.3, 0.7)
     torch.cuda.synchronize()
-    assert TK.LAUNCHES["vjp"] == before + 2
+    assert TK.LAUNCHES[key] == before + 2
     ref = TK.vjp_tile_ref(base, iso, X, G, 1.3, 0.7)
     width = 2 if iso else (d + 2 if base == "rq" else d + 1)
     assert g.shape == (width,) and g.dtype == torch.float32
     assert torch.equal(g, g2)
     scale = max(1.0, torch.max(torch.abs(ref)).item())
     assert torch.max(torch.abs(g - ref)).item() < VJP_RTOL * scale
+
+
+@pytest.mark.parametrize("cov", ["se", "m1", "m3", "m5", "rq", "se_iso",
+                                 "m1_iso"])
+@pytest.mark.parametrize("shape", [(1, 1), (63, 8), (64, 10), (65, 16),
+                                   (131, 17), (132, 33), (128, 8), (129, 10)])
+def test_vjp_kernel_at_tile_edges_and_both_paths(cuda, cov, shape):
+    """The folded gradient at the tile and schedule edges, on the TMA
+    path (N % 4 == 0) and the path without it: a non-symmetric cotangent
+    and its transpose give the same row, bit for bit, within VJP_RTOL of
+    the plain version and of the plain folded contraction; two launches
+    agree bit for bit; each launch is counted on its path's key."""
+    n, d = shape
+    iso = cov.endswith("_iso")
+    base = cov[:-4] if iso else cov
+    X, _ = _inputs(n, 1, d, 11, cuda)
+    if n > 8:
+        X[7] = X[n // 2]
+    G = torch.as_tensor(np.random.default_rng(12).normal(size=(n, n)),
+                        dtype=torch.float32, device=cuda)
+    TK.reset_launches()
+    g = TK.vjp_tile(base, iso, X, G, 1.3, 0.7)
+    g2 = TK.vjp_tile(base, iso, X, G, 1.3, 0.7)
+    gt_ = TK.vjp_tile(base, iso, X, G.T.contiguous().T, 1.3, 0.7)
+    torch.cuda.synchronize()
+    want = dict.fromkeys(TK.LAUNCHES, 0)
+    want["vjp" if n % 4 == 0 else "vjp_unaligned"] = 3
+    assert TK.LAUNCHES == want
+    assert torch.equal(g, g2)
+    ref = TK.vjp_tile_ref(base, iso, X, G, 1.3, 0.7)
+    folded = TK.vjp_tile_folded_ref(base, iso, X, G, 1.3, 0.7)
+    scale = max(1.0, torch.max(torch.abs(ref)).item())
+    assert torch.max(torch.abs(g - ref)).item() < VJP_RTOL * scale
+    assert torch.max(torch.abs(g - folded)).item() < VJP_RTOL * scale
+    # G.T.contiguous().T is G's values in column-major order: the wrapper
+    # reads it as the row-major G^T, and the fold gives the same sums.
+    assert torch.max(torch.abs(gt_ - ref)).item() < VJP_RTOL * scale
+
+
+def test_vjp_kernel_takes_an_unaligned_cotangent_without_tma(cuda):
+    """A cotangent whose base is not 16-byte aligned goes to the path
+    without TMA, whatever N, and agrees bit for bit with the TMA path on
+    the same values (the same pairs, sums in the same order)."""
+    n, d = 256, 8
+    X, _ = _inputs(n, 1, d, 13, cuda)
+    flat = torch.as_tensor(np.random.default_rng(14).normal(size=n * n + 1),
+                           dtype=torch.float32, device=cuda)
+    G_off = flat[1:].view(n, n)
+    assert G_off.data_ptr() % 16 != 0
+    TK.reset_launches()
+    g_off = TK.vjp_tile("se", False, X, G_off, 1.3, 0.7)
+    g = TK.vjp_tile("se", False, X, G_off.clone(), 1.3, 0.7)
+    assert TK.LAUNCHES["vjp_unaligned"] == 1 and TK.LAUNCHES["vjp"] == 1
+    assert torch.equal(g, g_off)
 
 
 def test_vjp_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -183,7 +294,8 @@ def test_nlml_gradient_on_card_matches_cpu(cuda):
                                                     device=cuda),
                                torch.as_tensor(y, dtype=torch.float32,
                                                device=cuda))
-    assert TK.LAUNCHES == {"self": B, "cross": 0, "vjp": B}
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "self": B,
+                           "vjp": B}
     v64, g64 = fns["nlz_grad"](hyp, torch.as_tensor(X), torch.as_tensor(y))
     assert g32.shape == (B, D + 3) and g32.dtype == torch.float64
     scale = torch.clamp(torch.abs(g64), min=1.0)
@@ -209,11 +321,12 @@ def test_gp_on_card_matches_cpu(cuda):
             "noise_parameters": [1, 0, 0]}
     TK.reset_launches()
     gp32 = gp_from_arrays({**meta, "dtype": "float32"}, X, y, None, hyp, cuda)
-    assert TK.LAUNCHES == {"self": S, "cross": 0, "vjp": 0}
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "self": S}
     gp64 = gp_from_arrays({**meta, "dtype": "float64"}, X, y, None, hyp, "cpu")
     xs = rng.normal(size=(500, D))
     mu32, s232 = gp32.predict(xs, separate_samples=True)
-    assert TK.LAUNCHES == {"self": S, "cross": S, "vjp": 0}
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "self": S,
+                           "cross": S}
     mu64, s264 = gp64.predict(xs, separate_samples=True)
     assert np.max(np.abs(mu32 - mu64)) < 1e-3
     assert np.max(np.abs(s232 - s264)) < 1e-3

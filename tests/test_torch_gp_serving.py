@@ -182,7 +182,7 @@ def test_float32_slice_with_kernel_tile_matches_jax_pallas(monkeypatch):
     TK.reset_launches()
     mu_j, s2_j = g.predict(xs, separate_samples=True)
     mu_t, s2_t = p.predict(xs, separate_samples=True)
-    assert TK.LAUNCHES == {"self": 0, "cross": 0, "vjp": 0}  # CPU: plain
+    assert set(TK.LAUNCHES.values()) == {0}  # CPU: plain
     assert np.max(np.abs(mu_t - mu_j)) < 1e-3
     assert np.max(np.abs(s2_t - s2_j)) < 1e-3
 

@@ -86,7 +86,7 @@ def test_cpu_path_launches_nothing_and_self_fused_has_no_backward():
     )
     assert np.max(np.abs(K.detach().numpy() - K_jax)) < TOL
     K.sum().backward()
-    assert TK.LAUNCHES == {"self": 0, "cross": 0, "vjp": 0}
+    assert set(TK.LAUNCHES.values()) == {0}
     assert Xt.grad is None
     h_ref = torch.as_tensor(hyp).requires_grad_(True)
     KT.kernel_matrix("se", h_ref, torch.as_tensor(X)).sum().backward()
