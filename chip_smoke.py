@@ -58,7 +58,31 @@ Phases, each of which raises on failure:
 10. gradient accuracy: at N = 2048, D = 8, 8 lanes, the float32 card
     gradient against the port's float64 gradient on the CPU; at N = 4096,
     2 lanes against a float64 build on the card; per entry
-    |dg| <= max(1e-3, 10 kappa eps32) max(|g64|, 1), kappa = cond(G).
+    |dg| <= max(1e-3, 10 kappa eps32) max(|g64|, 1), kappa = cond(G);
+11. fit_warm: a first small fit (N = 256, 8 design rows, 1 restart),
+    which pays what a process pays once (the lazy imports of
+    ``scipy.stats`` and ``scipy.optimize``), so that the two fits below
+    time the fit alone; its seconds are printed;
+12. fit_bench: ``GP.fit(options={"n_samples": 0})`` with the defaults
+    (``init_N`` = 1024 design rows, ``opts_N`` = 3 restarts) on an ARD-SE
+    GP with constant mean and constant noise, N = 4096, D = 8, float32,
+    y a smooth function of X plus noise; prints the seconds of the design,
+    the restarts and the posterior, and each restart's iterations, final
+    objective and stop rule.  Checks: the MAP objective is finite and
+    below the best design value; the returned restart's gradient in the
+    unbounded space has inf-norm below 100 tol, or that restart stopped
+    on the objective-drop rule (a restart that runs into a region where
+    the float32 objective is noisier than the decrease it looks for stops
+    on the step rule; it is printed and not returned); the float32 noise
+    floor raised the noise's lower
+    bound and the MAP noise respects it; the gradient tile was launched at
+    least once per iteration and the kernel tile at least once per design
+    row and per gradient; nothing ran on the paths without TMA; the
+    float32 MAP objective is within max(1e-3, 10 kappa eps32)
+    max(|f64|, 1) of the float64 objective at the same hyperparameters;
+13. fit_config5: the same at full width, N = 16384, D = 10, with the
+    design and restart counts of benchmarks/workloads.py:136, :185
+    (``init_N`` = 256, ``opts_N`` = 2), without the float64 comparison.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, last, the ``{"ok": true, "device": ...}`` line.  Imports
@@ -87,6 +111,10 @@ N_TR, D_TR, B_TR = 4096, 8, 8
 ROUNDS, ITERS = 3, 20
 LBFGS_ITERS = 10
 N_GACC, S_GACC_FULL = 2048, 2
+# The two fits: (N, D, options).  fit_bench takes GP.fit's defaults.
+FIT_BENCH = (N_TR, D_TR, {"n_samples": 0})
+FIT_CONFIG5 = (N, D, {"n_samples": 0, "init_N": 256, "opts_N": 2})
+FIT_NOISE = 0.3
 VJP_COVS = ("se", "m1", "m3", "m5", "rq", "se_iso", "m1_iso")
 # Kernel (direct differences) vs the plain norm-expansion version in
 # float32, the tolerance of tests/test_fused_kernel.py:46.
@@ -705,6 +733,113 @@ def phase_grad_accuracy(gp_bench, X_tr, y_tr, hyps_tr):
     return max(w1, w2)
 
 
+def _fit_data(n, d, seed):
+    """A smooth function of X plus noise of standard deviation FIT_NOISE,
+    above the float32 noise floor at both sizes, so that the MAP lies
+    inside the bounds."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, d))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + FIT_NOISE * rng.normal(
+        size=(n, 1))
+    return X, y
+
+
+def phase_fit_warm():
+    """The first fit of the process, at a small size."""
+    X, y = _fit_data(256, D_TR, SEED + 4)
+    gp = _se_gp(D_TR, np.float32)
+    np.random.seed(SEED)
+    t0 = time.perf_counter()
+    gp.fit(X, y, options={"n_samples": 0, "init_N": 8, "opts_N": 1})
+    torch.cuda.synchronize()
+    print(f"fit_warm: the first fit of the process, N=256 D={D_TR}, 8 design "
+          f"rows, 1 restart: {time.perf_counter() - t0:.3f} s "
+          f"({gp.fit_timings})")
+
+
+def phase_fit(name, n, d, options, compare_float64):
+    """``GP.fit`` without sampling on the card, with the checks of the
+    module docstring.  Returns the launches of the fit and its timings."""
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    X, y = _fit_data(n, d, SEED + 3)
+    gp = _se_gp(d, np.float32)
+    init_N = options.get("init_N", 1024)
+    tol = options.get("tol_opt", 1e-5)
+    np.random.seed(SEED)  # the design's column permutation
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    hyp, res, samples = gp.fit(X, y, options=dict(options))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    restarts = gp.fit_report["restarts"]
+    design_best = gp.fit_report["design_best"]
+    tm = gp.fit_timings
+    print(f"{name}: N={n} D={d} float32, options {options}: {wall:.3f} s = "
+          f"design {tm['design_s']:.3f} s ({init_N} rows, "
+          f"{tm['design_s'] / init_N * 1e3:.2f} ms a row) + optimize "
+          f"{tm['optimize_s']:.3f} s ({launches['vjp']} value-and-gradient "
+          f"evaluations, {tm['optimize_s'] / max(launches['vjp'], 1):.4f} s "
+          f"each) + posterior {tm['posterior_s']:.3f} s; peak device memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches}")
+    for i, r in enumerate(restarts):
+        print(f"  restart {i}: nit {r.nit}, objective {r.fun:.6f}, stopped on "
+              f"{r.stop}, |grad_z|_inf {r.grad_norm:.3e}")
+    print(f"  best design value {design_best:.6f} -> MAP objective "
+          f"{res.fun:.6f}; MAP hyp {np.round(hyp[0], 4).tolist()}")
+
+    if samples is not None or hyp.shape != (1, d + 3):
+        raise AssertionError(f"{name}: fit returned {hyp.shape}, {samples}")
+    if not (np.isfinite(res.fun) and res.fun < design_best):
+        raise AssertionError(f"{name}: MAP objective {res.fun} is not below "
+                             f"the best design value {design_best}")
+    if not (res.stop == "objective_drop" or res.grad_norm < 100 * tol):
+        raise AssertionError(
+            f"{name}: the returned restart stopped on {res.stop} with "
+            f"gradient inf-norm {res.grad_norm}")
+    cov_N = d + 1
+    LB = gp._f32_noise_floor(gp.lower_bounds, gp.upper_bounds, cov_N, options)
+    print(f"  noise floor: log sigma_n >= {LB[cov_N]:.4f} (the GP's own lower "
+          f"bound {gp.lower_bounds[cov_N]:.4f}); MAP log sigma_n "
+          f"{hyp[0, cov_N]:.4f}")
+    if not (LB[cov_N] > gp.lower_bounds[cov_N]
+            and all(r.x[cov_N] >= LB[cov_N] for r in restarts)):
+        raise AssertionError(f"{name}: the float32 noise floor did not hold")
+    nit = sum(r.nit for r in restarts)
+    if not (launches["vjp"] >= nit
+            and launches["self"] >= init_N + launches["vjp"]
+            and not any(v for k, v in launches.items()
+                        if k.endswith("_unaligned"))
+            and launches["cross"] == 0):
+        raise AssertionError(f"{name}: launches {launches} for {nit} "
+                             f"iterations and {init_N} design rows")
+    a = gp.posteriors[0].alpha
+    if not (tuple(a.shape) == (n, 1) and bool(torch.all(torch.isfinite(a)))):
+        raise AssertionError(f"{name}: the posterior at the MAP is not finite")
+
+    if compare_float64:
+        gp64 = _se_gp(d, np.float64)
+        gp64.update(X_new=X, y_new=y, hyp=hyp, compute_posterior=False)
+        f64 = gp64._objective(hyp[0])
+        f32 = gp._objective(hyp[0])
+        kappa = _kappa(torch.as_tensor(X, device=DEV), hyp[0])
+        rel = max(1e-3, 10.0 * kappa * EPS32)
+        err = abs(f32 - f64) / max(abs(f64), 1.0)
+        print(f"  float32 objective at the MAP {f32:.6f}, float64 {f64:.6f}: "
+              f"|df|/max(|f64|,1)={err:.3e} (tol {rel:.3e}, kappa(G)="
+              f"{kappa:.1f})")
+        if not err <= rel:
+            raise AssertionError(f"{name}: float32 MAP objective disagrees "
+                                 f"with float64")
+    return {"launches": launches, "timings": dict(tm), "wall": wall,
+            "nit": [r.nit for r in restarts],
+            "stop": [r.stop for r in restarts]}
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     return {
         "name": name,
@@ -721,7 +856,7 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     }
 
 
-def _kernels_line(kern, vjp, serve_launches, bench, cfg5):
+def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5):
     from gpyreg_tpu_torch.ops.tile_kernels import PROFILES
 
     tile = ("gpyreg_tpu_torch/csrc/kernel_tile.cu",
@@ -734,6 +869,8 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5):
         ("serving cross", "cross", serve_launches, "cross"),
         ("config-5 training self", "self", cfg5["launches"], "self"),
         ("bench training self", "self_train", bench["launches"], "self"),
+        ("fit_bench self", "self_train", fit_b["launches"], "self"),
+        ("fit_config5 self", "self", fit_5["launches"], "self"),
     ):
         err, ms, plain_ms, n, m, d = kern[(key, "se")]
         e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile,
@@ -747,7 +884,7 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5):
             tail = kern[("cross_tail", "se")]
             e["tail_ms"], e["tail_plain_ms"] = tail[1], tail[2]
             e["tail_bound_ms"] = _tile_bound(tail[3], tail[4], tail[5])[0]
-        if key in ("cross", "self_train"):
+        if use in ("serving cross", "bench training self"):
             # The path without TMA, held to the plain version in phase 3.
             ukey = "cross_unaligned" if key == "cross" else "self_unaligned"
             uerr, ums, uplain, un, um, ud = kern[(ukey, "se")]
@@ -759,12 +896,14 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5):
                 "bound_ms": _tile_bound(un, um, ud,
                                         self_cov=ukey == "self_unaligned")[0],
             }
-        if key == "self_train":
+        if use == "bench training self":
             e["python_float_ms"] = kern["python_float"][1]
         out.append(e)
     for use, label, counts in (
         ("bench training", "bench", bench["launches"]),
         ("config-5 training", "config5", cfg5["launches"]),
+        ("fit_bench", "bench", fit_b["launches"]),
+        ("fit_config5", "config5", fit_5["launches"]),
     ):
         err, rel, ms, plain_ms, n, d = vjp[(label, "se")]
         e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk,
@@ -773,7 +912,7 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5):
             vjp[(label, c)][1] for c in VJP_COVS)
         e["launches_by_dispatch"] = {"tma": counts["vjp"],
                                      "unaligned": counts["vjp_unaligned"]}
-        if label == "bench":
+        if use == "bench training":
             uerr, urel, ums, uplain, un, ud = vjp[("bench_unaligned", "se")]
             e["unaligned_check"] = {
                 "shape": f"N={un}, D={ud}",
@@ -812,9 +951,15 @@ def main():
     phase_accuracy()
     gp_bench, bench = phase_train_bench(X_tr, y_tr, hyps_tr)
     phase_grad_accuracy(gp_bench, X_tr, y_tr, hyps_tr)
+    del gp_bench
+    torch.cuda.empty_cache()
+    phase_fit_warm()
+    fit_b = phase_fit("fit_bench", *FIT_BENCH, compare_float64=True)
+    torch.cuda.empty_cache()
+    fit_5 = phase_fit("fit_config5", *FIT_CONFIG5, compare_float64=False)
 
     print(json.dumps({"kernels": _kernels_line(kern, vjp, serve_launches,
-                                                bench, cfg5)}))
+                                                bench, cfg5, fit_b, fit_5)}))
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(f"card (name, power limit): {smi}")
     print(json.dumps({

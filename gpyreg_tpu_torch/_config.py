@@ -11,6 +11,8 @@ Left out:
   is built once into ``gpyreg_tpu_torch/build/`` (``ops/_build.py``).
 """
 
+import torch
+
 # Maximum Cholesky jitter-escalation attempts; mirrors the retry loop in
 # reference gaussian_process.py:2413-2421 (10 tries, noise multiplier x10).
 CHOL_MAX_TRIES = 10
@@ -18,3 +20,17 @@ CHOL_MAX_TRIES = 10
 # Threshold on min(sn2) choosing the "high-noise" Cholesky parametrization,
 # reference gaussian_process.py:2404.
 LCHOL_THRESHOLD = 1e-6
+
+
+def resolve_device(device=None):
+    """``device`` as a ``torch.device``; None means the card.  There is no
+    fallback: without CUDA, the default raises and the caller passes
+    ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "gpyreg_tpu_torch runs on a CUDA device by default and none is "
+            "available; pass device=\"cpu\" to run on the CPU."
+        )
+    return torch.device("cuda")

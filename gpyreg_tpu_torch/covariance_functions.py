@@ -4,9 +4,9 @@ float64 on the CPU, and hyperparameter gradients come from forward-mode
 autodiff (``torch.func.jacfwd``) instead of hand-derived ``dK``.
 
 Port of ``gpyreg_tpu/covariance_functions.py``: ``_kind``, the
-hyperparameter counts and info, and ``compute``.  Left out until the fit
-slice: the recommended bounds (``get_bounds_info`` and
-``_bounds_info_helper``, :88-92, :168-220), which only ``GP.fit`` reads.
+hyperparameter counts and info, ``compute``, and the recommended bounds
+that ``GP.fit`` reads (``get_bounds_info`` and ``_bounds_info_helper``,
+:88-92, :168-220; numpy on the host).
 """
 
 import numpy as np
@@ -87,6 +87,12 @@ class AbstractKernel:
             self._kind, hyp, X, X_star, compute_diag, compute_grad
         )
 
+    def get_bounds_info(self, X: np.ndarray, y: np.ndarray):
+        """Recommended bounds from data ranges (reference
+        covariance_functions.py:424-463)."""
+        cov_N = self.hyperparameter_count(X.shape[1])
+        return _bounds_info_helper(cov_N, X, y)
+
 
 class SquaredExponential(AbstractKernel):
     """Squared exponential ARD kernel."""
@@ -121,3 +127,57 @@ class RationalQuadraticARD(AbstractKernel):
             ("covariance_log_outputscale", 1),
             ("covariance_log_shape", 1),
         ]
+
+    def get_bounds_info(self, X: np.ndarray, y: np.ndarray):
+        """Bounds including the log-shape init used by BADS (reference
+        covariance_functions.py:369-421, including its quirk of setting
+        PUB[D] = 5.0 for the outputscale)."""
+        cov_N = self.hyperparameter_count(X.shape[1])
+        info = _bounds_info_helper(cov_N, X, y, skip_tail=1)
+        # covariance_log_shape slot
+        info["LB"][-1] = -5.0
+        info["UB"][-1] = 5.0
+        info["PLB"][-1] = -5.0
+        # Reference sets PUB at index D (outputscale), not -1; reproduced
+        # for behavioral parity (covariance_functions.py:405).
+        info["PUB"][X.shape[1]] = 5.0
+        info["x0"][-1] = 1.0
+        i_nan = np.isnan(info["x0"])
+        info["x0"][i_nan] = 0.5 * (info["PLB"][i_nan] + info["PUB"][i_nan])
+        return info
+
+
+def _bounds_info_helper(cov_N, X, y, skip_tail=0):
+    """Data-driven recommended bounds (reference
+    covariance_functions.py:424-463): lengthscales bounded by data widths,
+    outputscale by target range, with a tol=1e-6 soft floor."""
+    _, D = X.shape
+    tol = 1e-6
+    LB = np.full((cov_N,), -np.inf)
+    UB = np.full((cov_N,), np.inf)
+    PLB = np.full((cov_N,), -np.inf)
+    PUB = np.full((cov_N,), np.inf)
+    x0 = np.full((cov_N,), np.nan)
+
+    width = np.max(X, axis=0) - np.min(X, axis=0)
+    if np.size(y) <= 1:
+        y = np.array([0, 1])
+    height = np.max(y) - np.min(y)
+
+    LB[0:D] = np.log(width) + np.log(tol)
+    UB[0:D] = np.log(width * 10)
+    PLB[0:D] = np.log(width) + 0.5 * np.log(tol)
+    PUB[0:D] = np.log(width)
+    x0[0:D] = np.log(np.std(X, ddof=1))
+
+    LB[D] = np.log(height) + np.log(tol)
+    UB[D] = np.log(height * 10)
+    PLB[D] = np.log(height) + 0.5 * np.log(tol)
+    PUB[D] = np.log(height)
+    x0[D] = np.log(np.std(y, ddof=1))
+
+    if not skip_tail:
+        i_nan = np.isnan(x0)
+        x0[i_nan] = 0.5 * (PLB[i_nan] + PUB[i_nan])
+
+    return {"LB": LB, "UB": UB, "PLB": PLB, "PUB": PUB, "x0": x0}

@@ -1,17 +1,21 @@
-"""The GP model object: the serving and likelihood shell over the
-PyTorch core.
+"""The GP model object: the serving, likelihood and MAP-fitting shell
+over the PyTorch core.
 
-Port of the serving and likelihood parts of ``gpyreg_tpu/gp.py``.  The
-public surface mirrors the reference ``GP`` class
+Port of the serving, likelihood and MAP-fit parts of ``gpyreg_tpu/gp.py``.
+The public surface mirrors the reference ``GP`` class
 (gaussian_process.py:24-2565): the constructor, the hyperparameter naming
-ABI, bounds and priors with their normalization constants (:758-981),
-``update``, ``predict``, ``log_likelihood`` / ``log_posterior`` with
-their gradients and the reference-private shims ``_GP__compute_nlZ`` /
+ABI, bounds (with the recommended ones) and priors with their
+normalization constants (:758-981), ``update``, ``predict``,
+``log_likelihood`` / ``log_posterior`` with their gradients and the
+reference-private shims ``_GP__compute_nlZ`` /
 ``_GP__compute_log_priors`` (:1763-1825), the objective
-``_objective`` / ``_objective_batch`` (:467-516), ``save``/``load`` and
-the ``Posterior`` field semantics, so PyVBMC-style consumers read the
-same fields.  Tensors live on the GP's ``device``, the card unless the
-caller asks for the CPU; the test points are served in chunks.  A
+``_objective`` / ``_objective_batch`` (:467-516), ``fit`` without
+hyperparameter sampling (:1402-1703: design, start selection, multistart
+MAP through ``inference/fit_phases.py``) with ``_f32_noise_floor``
+(:1355-1390), ``save``/``load`` and the ``Posterior`` field semantics, so
+PyVBMC-style consumers read the same fields.  Tensors live on the GP's
+``device``, the card unless the caller asks for the CPU; the test points
+are served in chunks.  A
 float32 GP on a CUDA device builds every self- and cross-covariance with
 the hand-written kernel tile, and takes the gradient of its
 self-covariance with the hand-written gradient tile (``ops/kernels.py``
@@ -19,31 +23,42 @@ dispatches).
 
 Left out, with the JAX package's lines:
 
-- until later slices: ``fit``, ``_f32_noise_floor`` and the samplers
-  (:1359-1757, the fit slice), the rank-1 branch of ``update``
-  (:1075-1212, with ``core/rank1.py``; a single new point is a full
-  rebuild here), ``predict_full``, ``quad``, ``random_function``,
-  ``predict_quantile`` and ``plot`` (:2120-2162, :2295-2510,
-  :2660-3049), output warping and the CG / matrix-free posteriors
-  (:1300-1391, ``predict``'s outwarp branches :2205-2259), the mesh tier
-  (``mesh``, :312-323, :1981-2012), the recommended bounds and
-  ``get_priors`` (:808-874), and ``__repr__``/``__str__`` (:681-731);
+- until later slices, ``fit`` raising ``NotImplementedError`` for each:
+  hyperparameter sampling (``n_samples > 0`` with any sampler but
+  ``"laplace"``, :1705-1757), the slicelite warm refit (:1643-1649),
+  ``method="cg"`` and ``"auto"`` above its threshold (:1618-1630), the
+  ``outwarp_fun`` option (:1550-1558);
+- until later slices: ``fmin`` (:2736-2826, with the rest of serving: it
+  differentiates the predictive mean in the test point), the rank-1
+  branch of ``update`` (:1075-1212, with ``core/rank1.py``; a single new
+  point is a full rebuild here), ``predict_full``, ``quad``,
+  ``random_function``, ``predict_quantile`` and ``plot`` (:2120-2162,
+  :2295-2510, :2660-3049), output warping and the CG / matrix-free
+  posteriors (:1300-1391, ``predict``'s outwarp branches :2205-2259), the
+  mesh tier (``mesh``, :312-323, :1981-2012), and
+  ``__repr__``/``__str__`` (:681-731);
 - for good, being TPU-only: ``mxu_predict`` (:301-311, :527-538),
   ``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
   compiled XLA programs), the stacked-factor cache ``_stack_cache`` and
-  the live-GP HBM pre-flight (:169-237, :350-375, :518-551), and the
-  compile log (:1392-1400).
+  the live-GP HBM pre-flight with ``fit``'s warning (:169-237, :350-375,
+  :518-551, :1521-1542), the compile log and ``fit_timings``'
+  ``n_compiles`` / ``compile_s`` (:1392-1400), and ``fit``'s
+  ``trace_dir`` option (:1505-1509, a hook into the JAX profiler;
+  ``tools/profile_torch_slice.py`` profiles a fit).
 """
+
+import time
 
 import numpy as np
 import scipy as sp
 import torch
 
-from ._config import LCHOL_THRESHOLD
+from ._config import LCHOL_THRESHOLD, resolve_device
 from .core.model import ModelSpec
 from .core.nlml import get_fns, posterior_factors, value_and_grad
 from .core.priors import build_prior_pack, log_prior
 from .f_min_fill import smoothbox_cdf, smoothbox_student_t_cdf
+from .inference import fit_phases as _fit_phases
 from .ops.linalg import neg_inverse_from_chol
 from .serving import (
     _post_small,
@@ -71,20 +86,6 @@ _CPU_POSTERIOR_BUDGET = 8 * 2**30
 # tools/profile_torch_slice.py): the triangular solve, which takes over
 # 90% of the time, runs faster the wider its right-hand side.
 _PREDICT_CHUNK_ELEMS = 2**28
-
-
-def resolve_device(device=None):
-    """``device`` as a ``torch.device``; None means the card.  There is no
-    fallback: without CUDA, the default raises and the caller passes
-    ``device="cpu"``."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "gpyreg_tpu_torch runs on a CUDA device by default and none is "
-            "available; pass device=\"cpu\" to run on the CPU."
-        )
-    return torch.device("cuda")
 
 
 class Posterior:
@@ -393,6 +394,75 @@ class GP:
             lower += count
         return out
 
+    def get_recommended_bounds(self, lower_bounds=None, upper_bounds=None):
+        """Recommended bounds dict; NaN entries in provided arrays are
+        filled with data-driven recommendations (reference
+        gaussian_process.py:260-359)."""
+        if self.X is None or self.y is None:
+            raise ValueError("GP does not have X or y set!")
+
+        def resolve(arg, current):
+            if isinstance(arg, (list, tuple, np.ndarray)):
+                return np.array(arg, dtype=np.float64)
+            if arg == "current":
+                return current.copy()
+            if arg is None or arg == "recommended":
+                return np.full_like(current, np.nan)
+            raise ValueError(
+                "`lower_bounds` should be 'recommended'/`None`, "
+                "'current', or an array."
+            )
+
+        lb = resolve(lower_bounds, self.lower_bounds)
+        ub = resolve(upper_bounds, self.upper_bounds)
+
+        # One recommended-bounds table for the whole flat hyp vector, in
+        # canonical cov | noise | mean order; NaN user entries pick up the
+        # recommendation elementwise.
+        infos = [
+            m.get_bounds_info(self.X, self.y)
+            for m in (self.covariance, self.noise, self.mean)
+        ]
+        rec_lb = np.concatenate([info["LB"] for info in infos])
+        rec_ub = np.concatenate([info["UB"] for info in infos])
+
+        lb = np.where(np.isnan(lb), rec_lb, lb)
+        ub = np.where(np.isnan(ub), rec_ub, ub)
+        return self.bounds_to_dict(lb, np.maximum(lb, ub))
+
+    def get_priors(self):
+        """Current hyperpriors as a dict of
+        ``name -> (type, params) | None``."""
+        def decode(mu, sigma, df, a, b):
+            """Classify one hyperparameter group's rows of the prior table
+            back into the named family; None when they encode no (usable)
+            prior."""
+            light_tails = np.all(df == 0) or np.all(df == np.inf)
+            heavy_tails = np.all(df > 0)
+            if all(np.isfinite(v).all() for v in (a, b, sigma)):
+                if light_tails:
+                    return ("smoothbox", (a, b, sigma))
+                if heavy_tails:
+                    return ("smoothbox_student_t", (a, b, sigma, df))
+            elif np.isfinite(mu).all() and np.isfinite(sigma).all():
+                if light_tails:
+                    return ("gaussian", (mu, sigma))
+                if heavy_tails:
+                    return ("student_t", (mu, sigma, df))
+            return None
+
+        table = self.hyper_priors
+        out = {}
+        pos = 0
+        for name, count in self._hyper_info():
+            rows = [
+                table[k][pos : pos + count].copy()
+                for k in ("mu", "sigma", "df", "a", "b")
+            ]
+            out[name] = decode(*rows)
+            pos += count
+        return out
+
     def set_priors(self, priors: dict = None):
         """Store hyperpriors from a dict of ``name -> (type, params)``;
         types gaussian, student_t, smoothbox, smoothbox_student_t
@@ -569,6 +639,260 @@ class GP:
         if self.posteriors is not None:
             for p in self.posteriors:
                 p.alpha = p.sW = p.L = p.sn2_mult = p.L_chol = None
+
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+
+    # float32 fits only: below sn2 ~ C*N*eps32*var(y) the kernel's
+    # condition number exceeds 1/eps32, the float32 Cholesky cannot
+    # factorize K and the jitter escalation silently acts as an unreported
+    # extra noise term, so the fitted noise hyperparameter no longer means
+    # what it says (its float64 NLML can be off by O(1) nats a point).
+    # The floor makes the fitted hyperparameters dtype-honest.  The
+    # reference has no analog (float64 only, LB = log(1e-6):
+    # noise_functions.py:107).
+    _F32_NOISE_FLOOR_C = 4.0
+    _F32_NOISE_FLOOR_MIN_N = 4096
+
+    def _f32_noise_floor(self, LB, UB, cov_N, options):
+        """Return ``LB`` with the constant-noise lower bound raised to the
+        float32 conditioning floor (no-op for float64, small N, noise
+        functions without a constant term, or
+        ``options={'f32_noise_floor': False}``).  Only the fit-local bounds
+        change; ``self.lower_bounds`` and the reference bounds ABI are
+        untouched."""
+        mode = options.get("f32_noise_floor", "auto")
+        if mode is False or mode is None:
+            return LB
+        if self.dtype != np.float32 or self.noise.parameters[0] != 1:
+            return LB
+        N = 0 if self.X is None else self.X.shape[0]
+        if mode == "auto" and N < self._F32_NOISE_FLOOR_MIN_N:
+            return LB
+        var_y = float(np.var(self.y)) if self.y is not None else 0.0
+        if not np.isfinite(var_y) or var_y <= 0 or N == 0:
+            return LB
+        if isinstance(mode, (int, float)) and not isinstance(mode, bool):
+            floor = float(mode)  # explicit log-sigma floor
+        else:
+            floor = 0.5 * np.log(
+                self._F32_NOISE_FLOOR_C
+                * N
+                * float(np.finfo(np.float32).eps)
+                * var_y
+            )
+        i_sn = cov_N
+        if floor <= LB[i_sn]:
+            return LB
+        LB = np.array(LB, copy=True)
+        LB[i_sn] = min(floor, UB[i_sn])
+        return LB
+
+    def fit(
+        self,
+        X: np.ndarray = None,
+        y: np.ndarray = None,
+        s2: np.ndarray = None,
+        hyp0=None,
+        options: dict = None,
+    ):
+        """Train hyperparameters: space-filling design (ranked on the
+        device) -> multistart MAP -> refreshed posterior.  Options and
+        defaults mirror reference gaussian_process.py:910-1232
+        (``opts_N`` 3, ``init_N`` 1024, ``init_method`` "sobol",
+        ``df_base`` 7, ``tol_opt`` 1e-5, ``n_samples`` 10,
+        ``lower_bounds`` / ``upper_bounds`` "current"), plus the JAX
+        package's:
+
+        - ``optimizer_backend``: 'device' (default; hand-written L-BFGS
+          over the device objective, ``inference/map_optimize.py``) or
+          'scipy' (sequential L-BFGS-B restarts, matching the reference's
+          optimizer exactly).
+        - ``design_subset``: rank the design on an evenly-strided subset
+          of that many data rows (off by default).
+        - ``f32_noise_floor``: 'auto' (default) raises the fit-local
+          lower bound of the constant-noise hyperparameter to the float32
+          conditioning floor ``0.5*log(C*N*eps32*var(y))`` for float32
+          fits at N >= 4096; ``True`` forces it at any N, ``False``
+          disables, a number pins an explicit log-sigma floor.
+
+        Only the MAP fit is ported: ``n_samples`` must be 0 or
+        ``sampler`` "laplace" (MAP only, whatever ``n_samples``; the JAX
+        package documents it so and rejects it as an unknown sampler when
+        ``n_samples > 0``).  The default ``n_samples`` = 10
+        with the default sampler raises ``NotImplementedError``, as do
+        the ``slicelite`` warm refit, ``method="cg"`` (and ``"auto"``
+        above ``cg_threshold_n``) and ``outwarp_fun``.  ``fit_timings``
+        holds ``design_s``, ``optimize_s`` and ``posterior_s``;
+        ``fit_report`` holds every restart's result (``"restarts"``) and
+        the best objective value of the design (``"design_best"``, None
+        unless the fused path ranked one).
+
+        Returns (hyp array, optimize_result, None).
+        """
+        if options is None:
+            options = {}
+        opts_N = options.get("opts_N", 3)
+        init_N = options.get("init_N", 2**10)
+        init_method = options.get("init_method", "sobol")
+        df_base = options.get("df_base", 7)
+        tol_opt = options.get("tol_opt", 1e-5)
+        sampler_name = options.get("sampler", "slicesample")
+        s_N = options.get("n_samples", 10)
+        lower_bounds = options.get("lower_bounds", "current")
+        upper_bounds = options.get("upper_bounds", "current")
+
+        # What later slices bring raises before any state changes.
+        if options.get("outwarp_fun", None) is not None:
+            raise NotImplementedError(
+                "fit(options={'outwarp_fun': ...}) is not ported yet: it "
+                "arrives with output warping (outwarp_functions)."
+            )
+        if options.get("trace_dir", None):
+            raise NotImplementedError(
+                "fit(options={'trace_dir': ...}) is a hook into the JAX "
+                "profiler and is not ported; profile a fit with "
+                "tools/profile_torch_slice.py."
+            )
+        method = options.get("method", "exact")
+        if method == "auto":
+            N_data = X.shape[0] if X is not None else (
+                0 if self.X is None else self.X.shape[0]
+            )
+            method = "cg" if N_data > options.get(
+                "cg_threshold_n", 32768
+            ) else "exact"
+        if method == "cg":
+            raise NotImplementedError(
+                "fit(options={'method': 'cg'}) is not ported yet: it "
+                "arrives with the matrix-free slice (ops/iterative.py, "
+                "inference/cg_fit.py)."
+            )
+        if method != "exact":
+            raise ValueError(f"Unknown fit method {method!r}")
+        if s_N > 0 and sampler_name != "laplace":
+            if sampler_name not in (
+                "slicesample", "slicelite", "covsample", "eissample",
+                "mala", "hmc",
+            ):
+                raise ValueError("Unknown sampler!")
+            what = (
+                "the slicelite warm refit and its sampler"
+                if sampler_name == "slicelite"
+                else f"sampler {sampler_name!r}"
+            )
+            raise NotImplementedError(
+                f"fit with n_samples={s_N} needs {what}, which arrives "
+                "with the sampler slice (inference/sampling.py, "
+                "inference/device_slice.py); until then pass "
+                "options={'n_samples': 0} or {'sampler': 'laplace'} for "
+                "the MAP fit."
+            )
+
+        self.fit_timings = {}
+        _t_start = time.perf_counter()
+
+        X, y, s2 = self._convert_shapes(X, y, s2)
+        if X is not None:
+            self.X = X
+        if y is not None:
+            self.y = y
+        if s2 is not None:
+            self.s2 = s2
+        self._invalidate()
+
+        cov_N, noise_N, _ = self._hyp_counts()
+
+        cov_info = self.covariance.get_bounds_info(self.X, self.y)
+        mean_info = self.mean.get_bounds_info(self.X, self.y)
+        noise_info = self.noise.get_bounds_info(self.X, self.y)
+
+        self.hyper_priors["df"][np.isnan(self.hyper_priors["df"])] = df_base
+
+        use_current_bounds = (
+            isinstance(lower_bounds, str)
+            and lower_bounds == "current"
+            and isinstance(upper_bounds, str)
+            and upper_bounds == "current"
+        )
+        if use_current_bounds and (
+            np.any(np.isnan(self.lower_bounds))
+            or np.any(np.isnan(self.upper_bounds))
+        ):
+            self.set_bounds(
+                self.get_recommended_bounds(
+                    self.lower_bounds, self.upper_bounds
+                )
+            )
+        else:
+            self.set_bounds(
+                self.get_recommended_bounds(lower_bounds, upper_bounds)
+            )
+
+        LB = self.lower_bounds
+        UB = self.upper_bounds
+        LB = self._f32_noise_floor(LB, UB, cov_N, options)
+
+        PLB = np.concatenate(
+            [cov_info["PLB"], noise_info["PLB"], mean_info["PLB"]]
+        )
+        PUB = np.concatenate(
+            [cov_info["PUB"], noise_info["PUB"], mean_info["PUB"]]
+        )
+        PLB = np.minimum(np.maximum(PLB, LB), UB)
+        PUB = np.maximum(np.minimum(PUB, UB), LB)
+
+        if hyp0 is None:
+            if self.posteriors is not None:
+                hyp0 = self.get_hyperparameters(as_array=True)
+            else:
+                hyp0 = np.reshape(
+                    np.minimum(np.maximum((PLB + PUB) / 2, LB), UB), (1, -1)
+                )
+        elif isinstance(hyp0, dict):
+            hyp0 = self.hyperparameters_from_dict(hyp0)
+
+        # ``tol_opt_mcmc``, the looser tolerance of a MAP that only
+        # starts a sampler, comes back with the samplers.
+        tol = tol_opt
+
+        ## Space-filling design + multistart MAP (inference/fit_phases).
+        hyp, nll, opt_results, opts_N, _, _, y0 = _fit_phases.design_and_map(
+            self,
+            hyp0,
+            LB,
+            UB,
+            PLB,
+            PUB,
+            options,
+            opts_N,
+            init_N,
+            init_method,
+            tol,
+            cov_N,
+            noise_N,
+            _t_start,
+        )
+
+        self.fit_report = {
+            "restarts": list(opt_results),
+            "design_best": None if y0 is None else float(y0[0]),
+        }
+
+        if opts_N > 0:
+            optimize_result = opt_results[np.argmin(nll)]
+            hyp_start = hyp[np.argmin(nll), :].copy()
+        else:
+            optimize_result = None
+            hyp_start = hyp[0, :].copy()
+
+        hyp_start = np.reshape(hyp_start, (1, -1))
+        self.update(hyp=hyp_start)
+        self.fit_timings["posterior_s"] = (
+            time.perf_counter() - _t_start - sum(self.fit_timings.values())
+        )
+        return hyp_start, optimize_result, None
 
     # ------------------------------------------------------------------
     # Likelihood / posterior evaluations

@@ -13,10 +13,9 @@ toggleable noise features summed into the total variance —
 else (N, 1).  The ``parameters`` flag vector (reference
 noise_functions.py:26-41) and the hyperparameter names and order are the
 cross-package ABI.  The device path uses ``core/model.noise_variance``.
-
-Left out until the fit slice: the recommended bounds
-(``get_bounds_info`` and each feature's ``bounds_rows``, :38-50, :71-75,
-:93-111, :158-179).
+The recommended bounds that ``GP.fit`` reads (``get_bounds_info`` and each
+feature's ``bounds_rows``, :38-50, :71-75, :93-111, :158-179) are numpy on
+the host.
 """
 
 import numpy as np
@@ -30,6 +29,20 @@ class _ConstantNoise:
     n_hyp = 1
     pointwise = False  # contribution independent of X, y
     info = [("noise_log_scale", 1)]
+
+    @staticmethod
+    def bounds_rows(D, y, tol):
+        height = np.max(y) - np.min(y)
+        return [
+            # (LB, UB, PLB, PUB, x0)
+            (
+                np.log(tol),
+                np.log(height),
+                0.5 * np.log(tol),
+                np.log(np.std(y, ddof=1)),
+                np.log(1e-3),
+            )
+        ]
 
     @staticmethod
     def term(h, X, y, s2, grad):
@@ -50,6 +63,12 @@ class _UserProvidedNoise:
             [("noise_provided_log_multiplier", 1)] if scaled else []
         )
 
+    @staticmethod
+    def bounds_rows(D, y, tol):
+        return [
+            (np.log(1e-3), np.log(1e3), np.log(0.5), np.log(2), np.log(1))
+        ]
+
     def term(self, h, X, y, s2, grad):
         s2 = 0 if s2 is None else s2
         if not self.scaled:
@@ -65,6 +84,26 @@ class _RectifiedOutputNoise:
     n_hyp = 2
     pointwise = True
     info = [("noise_rectified_log_multiplier", 2)]
+
+    @staticmethod
+    def bounds_rows(D, y, tol):
+        min_y, max_y = np.min(y), np.max(y)
+        return [
+            (
+                min_y,
+                max_y,
+                min_y,
+                np.maximum(max_y - 5 * D, min_y),
+                np.maximum(max_y - 10 * D, min_y),
+            ),
+            (
+                np.log(1e-3),
+                np.log(0.1),
+                np.log(0.01),
+                np.log(0.1),
+                np.log(0.1),
+            ),
+        ]
 
     @staticmethod
     def term(h, X, y, s2, grad):
@@ -108,6 +147,29 @@ class GaussianNoise:
 
     def hyperparameter_info(self):
         return [row for f in self._features for row in f.info]
+
+    def get_bounds_info(self, X: np.ndarray, y: np.ndarray):
+        """Recommended bounds (reference noise_functions.py:82-177)."""
+        _, D = X.shape
+        if np.size(y) <= 1:
+            y = np.array([0, 1])
+
+        rows = [
+            row
+            for f in self._features
+            for row in (f.bounds_rows(D, y, 1e-6) if f.n_hyp else [])
+        ]
+        if rows:
+            LB, UB, PLB, PUB, x0 = (
+                np.array(col, dtype=float) for col in zip(*rows)
+            )
+        else:
+            LB, UB, PLB, PUB, x0 = (np.zeros((0,)) for _ in range(5))
+
+        i_nan = np.isnan(x0)
+        x0[i_nan] = 0.5 * (PLB[i_nan] + PUB[i_nan])
+
+        return {"LB": LB, "PLB": PLB, "PUB": PUB, "UB": UB, "x0": x0}
 
     def compute(
         self,

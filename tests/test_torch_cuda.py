@@ -330,3 +330,45 @@ def test_gp_on_card_matches_cpu(cuda):
     mu64, s264 = gp64.predict(xs, separate_samples=True)
     assert np.max(np.abs(mu32 - mu64)) < 1e-3
     assert np.max(np.abs(s232 - s264)) < 1e-3
+
+
+def test_fit_on_card_runs_through_both_kernels(cuda):
+    """A small float32 ``GP.fit`` (MAP only) on the card, with no
+    ``device`` argument: the design rows launch the kernel tile, every
+    L-BFGS evaluation the kernel tile and the gradient tile, all on the
+    TMA paths (N % 4 == 0), and the MAP objective agrees with the same
+    fit in float64 on the CPU to 1e-3 * max(1, |f|)."""
+    import gpyreg_tpu_torch as gt
+
+    rng = np.random.default_rng(9)
+    N, D, init_N, opts_N = 512, 3, 32, 2
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.3 * rng.normal(size=(N, 1))
+    options = {"n_samples": 0, "init_N": init_N, "opts_N": opts_N,
+               "f32_noise_floor": True}
+
+    def fit(**kw):
+        g = gt.GP(D, gt.covariance_functions.SquaredExponential(),
+                  gt.mean_functions.ConstantMean(),
+                  gt.noise_functions.GaussianNoise(constant_add=True), **kw)
+        np.random.seed(3)
+        return (g,) + g.fit(X, y, options=dict(options))
+
+    TK.reset_launches()
+    g, hyp, res, samples = fit(dtype=np.float32)
+    launches = dict(TK.LAUNCHES)
+    assert g.device.type == "cuda" and samples is None
+    assert g.posteriors[0].alpha.is_cuda
+    restarts = g.fit_report["restarts"]
+    assert len(restarts) == opts_N
+    assert launches["vjp"] >= sum(r.nit for r in restarts) > 0
+    # design rows + evaluations + the value at each restart's end + the
+    # posterior
+    assert launches["self"] == init_N + launches["vjp"] + opts_N + 1
+    assert launches["cross"] == 0
+    assert not any(v for k, v in launches.items() if k.endswith("_unaligned"))
+    assert np.isfinite(res.fun) and res.fun < g.fit_report["design_best"]
+    floor = g._f32_noise_floor(g.lower_bounds, g.upper_bounds, D + 1, options)
+    assert floor[D + 1] > g.lower_bounds[D + 1] and hyp[0, D + 1] >= floor[D + 1]
+    _, _, res64, _ = fit(dtype=np.float64, device="cpu")
+    assert abs(res.fun - res64.fun) < 1e-3 * max(1.0, abs(res64.fun))

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's serving and training slices on one CUDA card.
+"""Profile the PyTorch port's serving, training and fit slices on one CUDA card.
 
 Run from the root of a checkout, on a machine with a card:
 
@@ -8,15 +8,21 @@ Run from the root of a checkout, on a machine with a card:
 It builds the config-5 GP of ``chip_smoke.py`` (N = 16384, D = 10, 8
 hyperparameter samples, float32, 100,000 test points, data from seed 0)
 and the training GP of bench.py's workload (N = 4096, D = 8, 8
-hyperparameter vectors, float32, ``chip_smoke._train_data``), and then:
+hyperparameter vectors, float32, ``chip_smoke._train_data``), takes the
+``fit_bench`` workload of ``chip_smoke.py`` (``GP.fit`` without sampling
+at its defaults, N = 4096, D = 8, float32, a new GP for each fit, span
+``fit_4096``), and then:
 
 1. warms up with one ``update``, one ``predict`` and one batched NLML
-   value and gradient (``get_fns(...)["nlz_grad"]``) of each GP;
+   value and gradient (``get_fns(...)["nlz_grad"]``) of each GP, and one
+   fit;
 2. runs one ``update``, one ``predict`` and one batched NLML value and
    gradient of each GP (spans ``nlml_grad_16384`` and ``nlml_grad_4096``)
    under ``torch.profiler`` (CPU and CUDA activities), each inside a
    ``record_function`` span that ends with a synchronize, and exports
-   the Chrome trace to ``--trace``.
+   the Chrome trace to ``--trace``; then the fit in a profiler run
+   and a trace file of its own (``--trace`` with ``.fit.json`` appended,
+   removed once it is read: it holds every kernel of 1024 design rows).
    From the trace's events it reports, for each span: its wall time; the
    device busy time, the union of the intervals of the ``kernel``,
    ``gpu_memcpy`` and ``gpu_memset`` events inside the span (device
@@ -28,9 +34,9 @@ hyperparameter vectors, float32, ``chip_smoke._train_data``), and then:
    the idle share 1 - busy / that wall.  The profiler's CPU tracing
    stretches the host's share of a span whose wall the host sets; this
    share leaves that cost out (device busy time is taken from step 2);
-4. runs each batched NLML value and gradient once more under its own
-   profiler session and reports each ``aten`` operator's self device
-   time (``key_averages``: the kernels the operator launches itself, not
+4. runs each batched NLML value and gradient, and the fit, once more
+   under its own profiler run and reports each ``aten`` operator's self
+   device time (``key_averages``: the kernels the operator launches itself, not
    those of the operators it calls, so no kernel is counted twice) as a
    share of that run's host-clock wall: ``linalg_cholesky_ex`` is potrf,
    ``cholesky_inverse`` the G^-1 of the adjoint;
@@ -146,8 +152,8 @@ def main():
     import numpy as np
 
     from gpyreg_tpu_torch import gp as gp_mod
-    from chip_smoke import (D, D_TR, M_TEST, N, N_TR, SEED, _data, _se_gp,
-                            _train_data)
+    from chip_smoke import (D, D_TR, FIT_BENCH, M_TEST, N, N_TR, SEED, _data,
+                            _fit_data, _se_gp, _train_data)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -169,8 +175,21 @@ def main():
         fns, args = g._obj_args()
         return fns["nlz_grad"](h, *args)
 
+    fit_n, fit_d, fit_options = FIT_BENCH
+    fit_X, fit_y = _fit_data(fit_n, fit_d, SEED + 3)
+
+    def fit():
+        g = _se_gp(fit_d, np.float32)
+        np.random.seed(SEED)
+        g.fit(fit_X, fit_y, options=dict(fit_options))
+        return g
+
     nlml_grad(gp, hyp)
     nlml_grad(gp_tr, hyps_tr)
+    g = fit()
+    print(f"fit_{fit_n}: timings {g.fit_timings}, restarts "
+          f"{g.fit_report['restarts']}", flush=True)
+    del g
     torch.cuda.synchronize()
 
     os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
@@ -182,17 +201,22 @@ def main():
         ("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
         ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
     )
-    host = {}
-    with torch.profiler.profile(activities=acts) as prof:
-        for name, fn in span_fns:
-            t0 = time.perf_counter()
-            with torch.profiler.record_function(name):
-                fn()
-                torch.cuda.synchronize()
-            host[name] = (time.perf_counter() - t0) * 1e3
-    prof.export_chrome_trace(args.trace)
-    spans = _spans(args.trace, tuple(host))
-    for name, fn in span_fns:
+    fit_span = ((f"fit_{fit_n}", fit),)
+    fit_trace = args.trace + ".fit.json"
+    host, spans = {}, {}
+    for trace, fns in ((args.trace, span_fns), (fit_trace, fit_span)):
+        with torch.profiler.profile(activities=acts) as prof:
+            for name, fn in fns:
+                t0 = time.perf_counter()
+                with torch.profiler.record_function(name):
+                    fn()
+                    torch.cuda.synchronize()
+                host[name] = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(trace)
+        del prof
+        spans.update(_spans(trace, tuple(name for name, _ in fns)))
+    os.remove(fit_trace)
+    for name, fn in span_fns + fit_span:
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -220,7 +244,8 @@ def main():
 
     ops = {}
     for name, fn in (("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
-                     ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr))):
+                     ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
+                     fit_span[0]):
         ops[name] = _op_table(fn, acts)
         print(f"{name} by operator: wall {ops[name]['wall_ms']:.1f} ms")
         for r in ops[name]["ops"]:
