@@ -20,8 +20,13 @@ Phases, each of which raises on failure:
    cross-covariance of a full predict chunk (16384 x 16384) and of the
    ragged last chunk (16384 x 1696), D = 10, and the training
    self-covariance 4096 x 4096, D = 8 (all on the TMA store path); then
-   the path without TMA (M % 4 != 0) at 4095 x 4095 self and 4096 x 4095
-   cross, D = 8.  Every self build is bitwise symmetric with its diagonal
+   the self-covariance of refit_slicelite_bench, 4100 x 4100, D = 8 (a
+   multiple of 4, so on the TMA store path, with a ragged last 64-row
+   tile); then the path without TMA (M % 4 != 0) at 4095 x 4095 self and
+   4096 x 4095 cross, D = 8, and at the one-column cross-covariances of
+   ``GP.sample``: 16384 x 1, D = 10 (config 5) and 4096 x 1, D = 8
+   (fit_sample_bench).  Every self build is
+   bitwise symmetric with its diagonal
    exactly sf2 * profile(0); each launch is counted on its path's key;
    sf2 and alpha are device tensors, as the main paths pass them, and at
    4096 x 4096 the time with Python floats (a host-to-device copy and a
@@ -82,7 +87,40 @@ Phases, each of which raises on failure:
     max(|f64|, 1) of the float64 objective at the same hyperparameters;
 13. fit_config5: the same at full width, N = 16384, D = 10, with the
     design and restart counts of benchmarks/workloads.py:136, :185
-    (``init_N`` = 256, ``opts_N`` = 2), without the float64 comparison.
+    (``init_N`` = 256, ``opts_N`` = 2), without the float64 comparison;
+14. fit_sample_bench: ``GP.fit`` with hyperposterior sampling and its
+    defaults (slicesample, ``n_samples`` 10, ``thin`` 5, ``burn`` 50,
+    ``init_N`` 1024, ``opts_N`` 3) on the data of fit_bench (N = 4096,
+    D = 8, float32);
+15. fit_sample_config5: the same at N = 16384, D = 10 with ``init_N`` 256,
+    ``opts_N`` 2, ``n_samples`` 8, and the chain cut to ``burn`` 4 and
+    ``thin`` 1 (12 sweeps, not the default 80);
+16. refit_slicelite_bench: a ``fit`` with the sampler "slicelite" on the
+    fit_sample_bench GP after 4 more rows of the same function (N = 4100):
+    it must take the warm-refit shortcut (no design, no MAP);
+17. covsample_chains_bench: N = 4096, the random-direction sampler
+    "covsample" in 2 chains, ``n_samples`` 10, ``init_N`` 256, ``opts_N`` 1;
+18. gp_sample: ``GP.sample(100)`` on the fit_sample_config5 GP (8
+    posteriors, N = 16384) and ``GP.sample(50, beta=0.5)`` on the
+    fit_sample_bench GP (10 posteriors, N = 4096), rebuilt from its data
+    and samples because the refit of phase 16 changed that GP.
+
+For each sampled fit it prints the phase seconds, ``n_evals`` (density
+calls), ms a density, densities a move (``n_evals`` over sweeps and free
+dimensions), the exit flag, max R-hat, min eff_N, the post-burn widths
+and the peak memory.  Checks: the samples lie in the fit's bounds (with
+the float32 noise floor); each sample's f_vals + log_priors is its log
+posterior recomputed on the card within 1e-5 relative (and, at
+fit_sample_bench, two samples are within max(1e-3, 10 kappa eps32) of
+the float64 log posterior); the kernel tile's self launches in the
+chain's window are at least ``n_evals`` (the rest are jitter retries,
+printed); the gradient tile ran at least once per L-BFGS iteration;
+nothing ran on the cross keys or a path without TMA; every posterior's
+alpha is finite.  For gp_sample: finite samples in bounds, only
+``cross_unaligned`` launches, a positive multiple of the posterior
+count, and at 3 samples the density (the float32 mixture mean) within
+1e-4 relative of the mixture mean of a float64 build's ``predict``.
+Short chains may flag non-convergence; that is printed, not checked.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, last, the ``{"ok": true, "device": ...}`` line.  Imports
@@ -115,6 +153,18 @@ N_GACC, S_GACC_FULL = 2048, 2
 FIT_BENCH = (N_TR, D_TR, {"n_samples": 0})
 FIT_CONFIG5 = (N, D, {"n_samples": 0, "init_N": 256, "opts_N": 2})
 FIT_NOISE = 0.3
+# The sampled fits: (name, N, D, options).  fit_sample_bench takes
+# GP.fit's defaults; fit_sample_config5 cuts the chain (burn 4, thin 1:
+# 12 sweeps for 8 samples, not 80) to keep the script inside its time.
+FIT_SAMPLE_BENCH = ("fit_sample_bench", N_TR, D_TR, {})
+FIT_SAMPLE_CONFIG5 = ("fit_sample_config5", N, D,
+                      {"init_N": 256, "opts_N": 2, "n_samples": 8, "burn": 4,
+                       "thin": 1})
+COVSAMPLE_CHAINS = ("covsample_chains_bench", N_TR, D_TR,
+                    {"sampler": "covsample", "n_chains": 2, "n_samples": 10,
+                     "init_N": 256, "opts_N": 1})
+REFIT_ROWS = 4
+GP_SAMPLE_N = (100, 50)
 VJP_COVS = ("se", "m1", "m3", "m5", "rq", "se_iso", "m1_iso")
 # Kernel (direct differences) vs the plain norm-expansion version in
 # float32, the tolerance of tests/test_fused_kernel.py:46.
@@ -298,6 +348,9 @@ def phase_kernel_vs_plain(X, xs, X_tr):
     Xu = Xt[:N_TR - 1].contiguous()
     Zu = torch.as_tensor(np.random.default_rng(SEED + 2).normal(
         size=(N_TR - 1, Xt.shape[1])), dtype=torch.float32, device=DEV)
+    # refit_slicelite_bench's N = 4100 = 64 * 64 + 4.
+    Xr = torch.cat([Xt, torch.as_tensor(np.random.default_rng(SEED + 6).normal(
+        size=(REFIT_ROWS, Xt.shape[1])), dtype=torch.float32, device=DEV)])
     sf2, alpha = _device_params()
     results = {}
     for use, key, (A, B, zd, reps) in (
@@ -305,8 +358,14 @@ def phase_kernel_vs_plain(X, xs, X_tr):
         ("cross", "cross", (Xs, Zc, False, 5)),
         ("cross_tail", "cross", (Xs, Zt, False, 20)),
         ("self_train", "self", (Xt, Xt, True, 20)),
+        ("self_refit", "self", (Xr, Xr, True, 20)),
         ("self_unaligned", "self_unaligned", (Xu, Xu, True, 20)),
         ("cross_unaligned", "cross_unaligned", (Xt, Zu, False, 20)),
+        # GP.sample's density: one column per posterior, at config 5 and
+        # at fit_sample_bench's N = 4096, D = 8.
+        ("cross_col", "cross_unaligned", (Xs, Zc[:1].contiguous(), False, 50)),
+        ("cross_col_bench", "cross_unaligned",
+         (Xt, Zu[:1].contiguous(), False, 50)),
     ):
         for base in TK.PROFILES:
             K = _one_launch(TK, key, lambda: TK.kernel_cross(
@@ -840,6 +899,243 @@ def phase_fit(name, n, d, options, compare_float64):
             "stop": [r.stop for r in restarts]}
 
 
+def _count_chain_windows():
+    """Wrap the port's two chain drivers so that each call records the
+    launches made inside it (the chain's window), without resetting the
+    counts; returns the list the windows are appended to."""
+    from gpyreg_tpu_torch.inference import device_slice as DS
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    windows = []
+
+    def wrap(fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            before = dict(TK.LAUNCHES)
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            windows.append({k: TK.LAUNCHES[k] - before[k] for k in before})
+            return out
+        return run
+
+    DS.sample = wrap(DS.sample)
+    DS.sample_chains = wrap(DS.sample_chains)
+    return windows
+
+
+def _sum_window(windows, start):
+    keys = windows[start].keys() if len(windows) > start else ()
+    return {k: sum(w[k] for w in windows[start:]) for k in keys}
+
+
+def _check_samples(name, gp, X, y, options, hyp, sr, opt_res, launches, window,
+                   compare_float64):
+    """The checks of the module docstring on one sampled fit; prints the
+    chain's numbers and returns them."""
+    d = X.shape[1]
+    hyp_N = d + 3
+    s_N = options.get("n_samples", 10)
+    LB = gp._f32_noise_floor(gp.lower_bounds, gp.upper_bounds, d + 1, options)
+    if hyp.shape != (s_N, hyp_N):
+        raise AssertionError(f"{name}: hyp has shape {hyp.shape}")
+    if not (np.all(hyp >= LB) and np.all(hyp <= gp.upper_bounds)):
+        raise AssertionError(f"{name}: samples outside the fit's bounds")
+    fns, args = gp._obj_args()
+    total = sr["f_vals"][:, 0] + sr["log_priors"]
+    worst = 0.0
+    for x, v in zip(sr["samples"], total):
+        ref = float(fns["log_post_chain_raw"](x, *args))
+        worst = max(worst, abs(v - ref) / max(1.0, abs(ref)))
+    print(f"  f_vals + log_priors against log_post_chain_raw recomputed at "
+          f"{len(total)} samples: max relative difference {worst:.3e}")
+    if not worst <= 1e-5:
+        raise AssertionError(f"{name}: chain values differ from the recomputed "
+                             f"log posterior by {worst:.3e}")
+    n_evals = int(np.sum(sr["n_evals"]))
+    print(f"  chain window launches {window}: self {window['self']} against "
+          f"n_evals {n_evals}, so {window['self'] - n_evals} jitter retries")
+    if window["self"] < n_evals:
+        raise AssertionError(f"{name}: {window['self']} self launches for "
+                             f"{n_evals} densities")
+    nit = sum(r.nit for r in gp.fit_report["restarts"])
+    if not (launches["vjp"] >= nit and launches["cross"] == 0
+            and not any(v for k, v in launches.items()
+                        if k.endswith("_unaligned"))):
+        raise AssertionError(f"{name}: launches {launches} for {nit} "
+                             f"iterations")
+    if opt_res is not None and launches["vjp"] < 1:
+        raise AssertionError(f"{name}: the MAP ran no gradient tile")
+    if not all(bool(torch.all(torch.isfinite(p.alpha))) for p in gp.posteriors):
+        raise AssertionError(f"{name}: a posterior's alpha is not finite")
+    if compare_float64:
+        gp64 = _se_gp(d, np.float64)
+        gp64.update(X_new=X, y_new=y, hyp=hyp[:2], compute_posterior=False)
+        Xd = torch.as_tensor(X, device=DEV)
+        for h in hyp[:2]:
+            f64 = -gp64._objective(h)
+            f32 = -gp._objective(h)
+            kappa = _kappa(Xd, h)
+            rel = max(1e-3, 10.0 * kappa * EPS32)
+            err = abs(f32 - f64) / max(abs(f64), 1.0)
+            print(f"  float32 log posterior {f32:.6f}, float64 {f64:.6f}: "
+                  f"|d|/max(|f64|,1)={err:.3e} (tol {rel:.3e}, kappa(G)="
+                  f"{kappa:.1f})")
+            if not err <= rel:
+                raise AssertionError(f"{name}: float32 log posterior at a "
+                                     f"sample disagrees with float64")
+        del gp64
+    return n_evals
+
+
+def phase_fit_sample(name, n, d, options, windows, gp=None, data=None,
+                     compare_float64=False):
+    """``GP.fit`` with hyperposterior sampling on the card (a new GP on
+    ``_fit_data`` unless ``gp`` and ``data`` are given), with the checks
+    of the module docstring.  Returns the GP, its data and the numbers of
+    the phase."""
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    X, y = _fit_data(n, d, SEED + 3) if data is None else data
+    gp = _se_gp(d, np.float32) if gp is None else gp
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    start = len(windows)
+    t0 = time.perf_counter()
+    hyp, res, sr = gp.fit(X, y, options=dict(options))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    window = _sum_window(windows, start)
+    tm = gp.fit_timings
+    # A coordinate-wise sweep makes one move per free dimension, a
+    # random-direction sweep one move.
+    if options.get("sampler") == "covsample":
+        moves = 1
+    else:
+        moves = int(np.sum(gp.lower_bounds != gp.upper_bounds))
+    sweeps = int(np.sum(sr["n_sweeps"]))
+    n_evals = int(np.sum(sr["n_evals"]))
+    R = sr.get("R")
+    eff = sr.get("eff_N")
+    print(f"{name}: N={X.shape[0]} D={d} float32, options {options}: "
+          f"{wall:.3f} s = design {tm['design_s']:.3f} + optimize "
+          f"{tm['optimize_s']:.3f} + sample {tm['sample_s']:.3f} + posterior "
+          f"{tm['posterior_s']:.3f} s; peak device memory {peak / 2**30:.2f} "
+          f"GiB; launches {launches}")
+    print(f"  sample_s {tm['sample_s']:.3f} s, n_evals {n_evals} "
+          f"(per chain {np.atleast_1d(sr['n_evals']).tolist()}), "
+          f"{tm['sample_s'] / n_evals * 1e3:.3f} ms a density, "
+          f"{n_evals / (sweeps * moves):.2f} densities a move ({sweeps} sweeps x "
+          f"{moves} moves), {n_evals / tm['sample_s']:.1f} densities/s")
+    print(f"  exit_flag {sr['exit_flag']}, max R "
+          f"{'n/a' if R is None else f'{float(np.max(R)):.3f}'}, min eff_N "
+          f"{'n/a' if eff is None else f'{float(np.min(eff)):.2f}'}, "
+          f"post-burn widths "
+          f"{np.round(sr['widths'], 5).tolist() if 'widths' in sr else 'n/a'}"
+          f"{', ess_frac %.4f, thin_eff %d' % (sr['ess_frac'], sr['thin_eff']) if 'ess_frac' in sr else ''}")
+    if res is not None:
+        print(f"  MAP objective {res.fun:.6f} after "
+              f"{[r.nit for r in gp.fit_report['restarts']]} iterations "
+              f"({[r.stop for r in gp.fit_report['restarts']]})")
+    _check_samples(name, gp, X, y, options, hyp, sr, res, launches, window,
+                   compare_float64)
+    return gp, (X, y), {"launches": launches, "timings": dict(tm), "wall": wall,
+                        "n_evals": n_evals, "peak": peak, "window": window,
+                        "sr": sr, "res": res}
+
+
+def phase_refit_slicelite(gp, data, windows):
+    """A slicelite fit on the fit_sample_bench GP after REFIT_ROWS more
+    rows of the same function: it must take the warm-refit shortcut."""
+    X, y = data
+    rng = np.random.default_rng(SEED + 5)
+    Xn = rng.normal(size=(REFIT_ROWS, X.shape[1]))
+    yn = np.sum(np.sin(Xn), axis=1, keepdims=True) + FIT_NOISE * rng.normal(
+        size=(REFIT_ROWS, 1))
+    data = (np.vstack([X, Xn]), np.vstack([y, yn]))
+    options = {"sampler": "slicelite"}
+    gp, data, out = phase_fit_sample("refit_slicelite_bench", data[0].shape[0],
+                                     X.shape[1], options, windows, gp=gp,
+                                     data=data)
+    sr = out["sr"]
+    if out["res"] is not None or "ess_frac" not in sr or "thin_eff" not in sr:
+        raise AssertionError(f"refit_slicelite_bench: the warm refit was not "
+                             f"taken (ess_frac "
+                             f"{getattr(gp, 'slicelite_ess_frac', None)})")
+    return gp, out
+
+
+def _se_meta(d, dtype):
+    """``convert.gp_from_arrays``'s meta of ``_se_gp``."""
+    return {"D": d, "cov_kind": "se", "mean_kind": "const",
+            "noise_parameters": [1, 0, 0], "dtype": dtype}
+
+
+def phase_gp_sample(gp5, data5, data_b, hyp_b, windows):
+    """GP.sample on the config-5 GP (beta 0) and on the fit_sample_bench
+    GP, rebuilt from its data and samples ``hyp_b`` (beta 0.5), with the
+    checks of the module docstring."""
+    from gpyreg_tpu_torch.convert import gp_from_arrays
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    gp_b = gp_from_arrays(_se_meta(hyp_b.shape[1] - 3, "float32"), *data_b,
+                          None, hyp_b, DEV)
+    out = {}
+    for label, g, n, beta in (("config5", gp5, GP_SAMPLE_N[0], 0.0),
+                              ("bench", gp_b, GP_SAMPLE_N[1], 0.5)):
+        S_g = g.posteriors.size
+        torch.cuda.synchronize()
+        TK.reset_launches()
+        start = len(windows)
+        t0 = time.perf_counter()
+        samples = g.sample(n, beta=beta, key=SEED)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(TK.LAUNCHES)
+        n_dens = launches["cross_unaligned"] // S_g
+        X = g.X
+        diam = X.max(axis=0) - X.min(axis=0)
+        lb, ub = X.min(axis=0) - 10 * diam, X.max(axis=0) + 10 * diam
+        print(f"gp_sample {label}: GP.sample({n}, beta={beta}) on N={X.shape[0]} "
+              f"D={X.shape[1]}, {S_g} posteriors: {secs:.3f} s, {n_dens} "
+              f"densities, {secs / n_dens * 1e3:.3f} ms a density; launches "
+              f"{launches}")
+        if not (samples.shape == (n, X.shape[1]) and np.all(np.isfinite(samples))
+                and np.all(samples >= lb) and np.all(samples <= ub)):
+            raise AssertionError(f"gp_sample {label}: samples not finite or "
+                                 f"out of bounds")
+        n_cross = launches["cross_unaligned"]
+        if not (n_cross > 0 and n_cross % S_g == 0 and launches == {
+                **dict.fromkeys(TK.LAUNCHES, 0), "cross_unaligned": n_cross}):
+            raise AssertionError(f"gp_sample {label}: launches {launches}")
+        out[label] = {"launches": launches, "secs": secs, "densities": n_dens,
+                      "window": _sum_window(windows, start)}
+    # At 3 samples of the config-5 chain, the density (beta 0: the float32
+    # mixture mean) against the mixture mean of a float64 build's predict.
+    X, y = data5
+    hyp = gp5.get_hyperparameters(as_array=True)
+    del gp_b
+    gp64 = gp_from_arrays(_se_meta(X.shape[1], "float64"), X, y, None, hyp, DEV)
+    pts = gp5.sample(3, key=SEED + 1)
+    mu64, _ = gp64.predict(pts)
+    del gp64
+    torch.cuda.empty_cache()
+    mean = gp5._mixture_mean_variance_fn(compute_var=False)
+    worst = 0.0
+    for x, m64 in zip(pts, mu64[:, 0]):
+        m32 = float(mean(torch.tensor(x))[0])
+        worst = max(worst, abs(m32 - m64) / max(1.0, abs(m64)))
+    print(f"gp_sample: the float32 density at 3 samples against a float64 "
+          f"mixture mean from predict: max |d|/max(|mu64|,1) = {worst:.3e} "
+          f"(tol 1e-4)")
+    if not worst <= 1e-4:
+        raise AssertionError("gp_sample: the density disagrees with float64")
+    return out
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     return {
         "name": name,
@@ -856,7 +1152,7 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     }
 
 
-def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5):
+def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
     from gpyreg_tpu_torch.ops.tile_kernels import PROFILES
 
     tile = ("gpyreg_tpu_torch/csrc/kernel_tile.cu",
@@ -871,10 +1167,23 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5):
         ("bench training self", "self_train", bench["launches"], "self"),
         ("fit_bench self", "self_train", fit_b["launches"], "self"),
         ("fit_config5 self", "self", fit_5["launches"], "self"),
+        ("fit_sample_bench self", "self_train", samp["bench"]["launches"], "self"),
+        ("fit_sample_config5 self", "self", samp["config5"]["launches"], "self"),
+        ("refit_slicelite_bench self", "self_refit", samp["refit"]["launches"],
+         "self"),
+        ("covsample_chains_bench self", "self_train", samp["chains"]["launches"],
+         "self"),
+        ("gp_sample config5 cross column", "cross_col",
+         samp["gp_sample"]["config5"]["launches"], "cross"),
+        ("gp_sample bench cross column", "cross_col_bench",
+         samp["gp_sample"]["bench"]["launches"], "cross"),
     ):
         err, ms, plain_ms, n, m, d = kern[(key, "se")]
+        # The one-column cross of GP.sample runs on the path without TMA.
+        launches = counts[path + "_unaligned" if key.startswith("cross_col")
+                          else path]
         e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile,
-                   counts[path], err, ms, plain_ms,
+                   launches, err, ms, plain_ms,
                    _tile_bound(n, m, d, self_cov=path == "self"))
         e["max_abs_err_all_profiles"] = max(kern[(key, b)][0] for b in PROFILES)
         # The main path's launches by dispatch: TMA store, or plain stores.
@@ -904,6 +1213,8 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5):
         ("config-5 training", "config5", cfg5["launches"]),
         ("fit_bench", "bench", fit_b["launches"]),
         ("fit_config5", "config5", fit_5["launches"]),
+        ("fit_sample_bench", "bench", samp["bench"]["launches"]),
+        ("fit_sample_config5", "config5", samp["config5"]["launches"]),
     ):
         err, rel, ms, plain_ms, n, d = vjp[(label, "se")]
         e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk,
@@ -958,8 +1269,25 @@ def main():
     torch.cuda.empty_cache()
     fit_5 = phase_fit("fit_config5", *FIT_CONFIG5, compare_float64=False)
 
+    windows = _count_chain_windows()
+    samp = {}
+    torch.cuda.empty_cache()
+    gp_b, data_b, samp["bench"] = phase_fit_sample(*FIT_SAMPLE_BENCH, windows,
+                                                   compare_float64=True)
+    hyp_b = gp_b.get_hyperparameters(as_array=True)
+    torch.cuda.empty_cache()
+    gp_5, data_5, samp["config5"] = phase_fit_sample(*FIT_SAMPLE_CONFIG5, windows)
+    torch.cuda.empty_cache()
+    _, samp["refit"] = phase_refit_slicelite(gp_b, data_b, windows)
+    del gp_b
+    torch.cuda.empty_cache()
+    _, _, samp["chains"] = phase_fit_sample(*COVSAMPLE_CHAINS, windows)
+    torch.cuda.empty_cache()
+    samp["gp_sample"] = phase_gp_sample(gp_5, data_5, data_b, hyp_b, windows)
+
     print(json.dumps({"kernels": _kernels_line(kern, vjp, serve_launches,
-                                                bench, cfg5, fit_b, fit_5)}))
+                                                bench, cfg5, fit_b, fit_5,
+                                                samp)}))
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(f"card (name, power limit): {smi}")
     print(json.dumps({

@@ -10,10 +10,13 @@ gradient, are hand-written CUDA kernels for Hopper
 
 This package imports ``torch`` and never JAX.  It covers serving
 (``GP.update`` with a full posterior rebuild over S hyperparameter
-samples, ``GP.predict``, ``save``/``load``) and the NLML with its
-gradient, batched over hyperparameter vectors, with and without the
-hyperprior (``core.nlml.get_fns``, ``GP.log_likelihood``,
-``GP.log_posterior``).  ``ROADMAP.md`` lists the modules still to come.
+samples, ``GP.predict``, ``save``/``load``), the NLML with its gradient,
+batched over hyperparameter vectors, with and without the hyperprior
+(``core.nlml.get_fns``, ``GP.log_likelihood``, ``GP.log_posterior``),
+and ``GP.fit``: the design, the multistart MAP and the slice-sampled
+hyperposterior (slicesample, covsample, chains, the slicelite warm
+refit, the host ``SliceSampler``), with ``GP.sample`` on the fitted
+surrogate.  ``ROADMAP.md`` lists the modules still to come.
 """
 
 from . import covariance_functions

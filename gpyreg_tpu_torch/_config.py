@@ -7,8 +7,9 @@ Left out:
 - the float64 switch (``gpyreg_tpu/_config.py:13-14``): PyTorch keeps
   each tensor's dtype, so the port needs no global mode;
 - the persistent compile cache (``gpyreg_tpu/_config.py:16-33``): the
-  port runs eagerly and compiles nothing at import; its one CUDA kernel
-  is built once into ``gpyreg_tpu_torch/build/`` (``ops/_build.py``).
+  port runs eagerly and compiles nothing at import; its two CUDA
+  libraries (``csrc/kernel_tile.cu``, ``csrc/kernel_vjp.cu``) are built
+  at first use into ``gpyreg_tpu_torch/build/`` (``ops/_build.py``).
 """
 
 import torch

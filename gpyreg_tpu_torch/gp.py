@@ -1,50 +1,52 @@
-"""The GP model object: the serving, likelihood and MAP-fitting shell
-over the PyTorch core.
+"""The GP model object: the serving, likelihood and fitting shell over
+the PyTorch core.
 
-Port of the serving, likelihood and MAP-fit parts of ``gpyreg_tpu/gp.py``.
-The public surface mirrors the reference ``GP`` class
-(gaussian_process.py:24-2565): the constructor, the hyperparameter naming
-ABI, bounds (with the recommended ones) and priors with their
+Port of the serving, likelihood and fitting parts of
+``gpyreg_tpu/gp.py``.  The public surface mirrors the reference ``GP``
+class (gaussian_process.py:24-2565): the constructor, the hyperparameter
+naming ABI, bounds (with the recommended ones) and priors with their
 normalization constants (:758-981), ``update``, ``predict``,
 ``log_likelihood`` / ``log_posterior`` with their gradients and the
 reference-private shims ``_GP__compute_nlZ`` /
 ``_GP__compute_log_priors`` (:1763-1825), the objective
-``_objective`` / ``_objective_batch`` (:467-516), ``fit`` without
-hyperparameter sampling (:1402-1703: design, start selection, multistart
-MAP through ``inference/fit_phases.py``) with ``_f32_noise_floor``
-(:1355-1390), ``save``/``load`` and the ``Posterior`` field semantics, so
-PyVBMC-style consumers read the same fields.  Tensors live on the GP's
-``device``, the card unless the caller asks for the CPU; the test points
-are served in chunks.  A
-float32 GP on a CUDA device builds every self- and cross-covariance with
-the hand-written kernel tile, and takes the gradient of its
-self-covariance with the hand-written gradient tile (``ops/kernels.py``
-dispatches).
+``_objective`` / ``_objective_batch`` (:467-516), ``fit`` (:1402-1757:
+design, start selection, multistart MAP through
+``inference/fit_phases.py``, the hyperposterior sampling phase and the
+slicelite warm refit through ``inference/sampling.py``) with
+``_f32_noise_floor`` (:1355-1390), ``sample`` with
+``_mixture_mean_variance_fn`` and ``_require_factors`` (:2736-2783,
+:2828-2890, :1300-1310), ``save``/``load`` and the ``Posterior`` field
+semantics, so PyVBMC-style consumers read the same fields.  Tensors live
+on the GP's ``device``, the card unless the caller asks for the CPU; the
+test points are served in chunks.  A float32 GP on a CUDA device builds
+every self- and cross-covariance with the hand-written kernel tile, and
+takes the gradient of its self-covariance with the hand-written gradient
+tile (``ops/kernels.py`` dispatches).
 
 Left out, with the JAX package's lines:
 
 - until later slices, ``fit`` raising ``NotImplementedError`` for each:
-  hyperparameter sampling (``n_samples > 0`` with any sampler but
-  ``"laplace"``, :1705-1757), the slicelite warm refit (:1643-1649),
-  ``method="cg"`` and ``"auto"`` above its threshold (:1618-1630), the
-  ``outwarp_fun`` option (:1550-1558);
-- until later slices: ``fmin`` (:2736-2826, with the rest of serving: it
+  the samplers "mala", "hmc" and "eissample" (:396-477 of
+  ``inference/sampling.py``), ``method="cg"`` and ``"auto"`` above its
+  threshold (:1618-1630), the ``outwarp_fun`` option (:1550-1558);
+- until later slices: ``fmin`` (:2785-2826, with the rest of serving: it
   differentiates the predictive mean in the test point), the rank-1
   branch of ``update`` (:1075-1212, with ``core/rank1.py``; a single new
   point is a full rebuild here), ``predict_full``, ``quad``,
   ``random_function``, ``predict_quantile`` and ``plot`` (:2120-2162,
-  :2295-2510, :2660-3049), output warping and the CG / matrix-free
-  posteriors (:1300-1391, ``predict``'s outwarp branches :2205-2259), the
-  mesh tier (``mesh``, :312-323, :1981-2012), and
+  :2295-2510, :2660-2735, :2892-3049), output warping and the CG /
+  matrix-free posteriors (:1312-1391, ``predict``'s outwarp branches
+  :2205-2259), the mesh tier (``mesh``, :312-323, :1981-2012), and
   ``__repr__``/``__str__`` (:681-731);
 - for good, being TPU-only: ``mxu_predict`` (:301-311, :527-538),
   ``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
   compiled XLA programs), the stacked-factor cache ``_stack_cache`` and
-  the live-GP HBM pre-flight with ``fit``'s warning (:169-237, :350-375,
-  :518-551, :1521-1542), the compile log and ``fit_timings``'
-  ``n_compiles`` / ``compile_s`` (:1392-1400), and ``fit``'s
-  ``trace_dir`` option (:1505-1509, a hook into the JAX profiler;
-  ``tools/profile_torch_slice.py`` profiles a fit).
+  the live-GP HBM pre-flight with ``fit``'s warning and
+  ``_device_factor_bytes`` (:169-237, :350-375, :518-551, :1521-1542),
+  the compile log and ``fit_timings``' ``n_compiles`` / ``compile_s``
+  (:1392-1400), and ``fit``'s ``trace_dir`` option (:1505-1509, a hook
+  into the JAX profiler; ``tools/profile_torch_slice.py`` profiles a
+  fit).
 """
 
 import time
@@ -58,12 +60,17 @@ from .core.model import ModelSpec
 from .core.nlml import get_fns, posterior_factors, value_and_grad
 from .core.priors import build_prior_pack, log_prior
 from .f_min_fill import smoothbox_cdf, smoothbox_student_t_cdf
+from .inference import device_slice as _device_slice
 from .inference import fit_phases as _fit_phases
+from .inference import sampling as _sampling
 from .ops.linalg import neg_inverse_from_chol
 from .serving import (
     _post_small,
     _scaled_upper_batch,
     _sw_batch,
+    chol_branch,
+    inv_branch,
+    mean_branch,
     predict_chunked,
     prior_branch,
 )
@@ -698,12 +705,14 @@ class GP:
         options: dict = None,
     ):
         """Train hyperparameters: space-filling design (ranked on the
-        device) -> multistart MAP -> refreshed posterior.  Options and
-        defaults mirror reference gaussian_process.py:910-1232
-        (``opts_N`` 3, ``init_N`` 1024, ``init_method`` "sobol",
-        ``df_base`` 7, ``tol_opt`` 1e-5, ``n_samples`` 10,
-        ``lower_bounds`` / ``upper_bounds`` "current"), plus the JAX
-        package's:
+        device) -> multistart MAP -> slice-sampled hyperposterior ->
+        refreshed posteriors.  Options and defaults mirror reference
+        gaussian_process.py:910-1232 (``opts_N`` 3, ``init_N`` 1024,
+        ``init_method`` "sobol", ``df_base`` 7, ``tol_opt`` 1e-5,
+        ``tol_opt_mcmc`` 1e-3 for a MAP that starts a sampler,
+        ``n_samples`` 10, ``thin`` 5, ``burn`` thin * n_samples,
+        ``widths`` None, ``lower_bounds`` / ``upper_bounds`` "current"),
+        plus the JAX package's:
 
         - ``optimizer_backend``: 'device' (default; hand-written L-BFGS
           over the device objective, ``inference/map_optimize.py``) or
@@ -716,20 +725,47 @@ class GP:
           conditioning floor ``0.5*log(C*N*eps32*var(y))`` for float32
           fits at N >= 4096; ``True`` forces it at any N, ``False``
           disables, a number pins an explicit log-sigma floor.
+        - ``sampler``: 'slicesample' (default, coordinate-wise slice),
+          'slicelite' (the same chain, plus the warm-refit shortcut: when
+          the previous samples' importance-weight ESS fraction under the
+          new data exceeds ``ess_thresh`` (0.5), design and MAP are
+          skipped and each previous sample is refreshed with a few
+          no-adapt sweeps, gplite_train.m:178-197, 359-390; the previous
+          log posteriors come from ``hyp0_logp`` (alias ``log_P``) or
+          from this object's last fit), 'covsample' (random-direction
+          slice, gplite_train.m:392-407), or 'laplace' (MAP only,
+          whatever ``n_samples``; the JAX package documents it so and
+          rejects it as an unknown sampler when ``n_samples > 0``).
+          'mala', 'hmc' and 'eissample' raise ``NotImplementedError``
+          until their slice.
+        - ``sampler_backend``: 'device' (default; the chain of
+          ``inference/device_slice.py``, each density on the GP's
+          device) or 'host' (the parity ``SliceSampler`` driven by
+          numpy's global stream).
+        - ``n_chains``: this many independent chains, run one after the
+          other, with the cross-chain split R-hat;
+          ``chain_start_jitter`` (0.1) overdisperses the starts of the
+          chains after the first by that fraction of the widths;
+          ``chain_thin`` (1) keeps every k-th sweep inside each chain;
+          ``chain_group`` is accepted and changes nothing.
+        - ``sample_width_base`` (default True): the MAP-phase widths act
+          as a geometric floor on the end-of-burn 5*std width rule
+          (reference slice_sample.py:535-543); False lets the rule stand
+          alone.  Also ``step_out``, ``sampler_diagnostics`` and
+          ``display``.
 
-        Only the MAP fit is ported: ``n_samples`` must be 0 or
-        ``sampler`` "laplace" (MAP only, whatever ``n_samples``; the JAX
-        package documents it so and rejects it as an unknown sampler when
-        ``n_samples > 0``).  The default ``n_samples`` = 10
-        with the default sampler raises ``NotImplementedError``, as do
-        the ``slicelite`` warm refit, ``method="cg"`` (and ``"auto"``
-        above ``cg_threshold_n``) and ``outwarp_fun``.  ``fit_timings``
-        holds ``design_s``, ``optimize_s`` and ``posterior_s``;
-        ``fit_report`` holds every restart's result (``"restarts"``) and
-        the best objective value of the design (``"design_best"``, None
-        unless the fused path ranked one).
+        ``method="cg"`` (and ``"auto"`` above ``cg_threshold_n``) and
+        ``outwarp_fun`` raise ``NotImplementedError``.  ``fit_timings``
+        holds ``design_s``, ``optimize_s``, ``sample_s`` when it samples
+        and ``posterior_s``; ``fit_report`` holds every restart's result
+        (``"restarts"``) and the best objective value of the design
+        (``"design_best"``, None unless the fused path ranked one).
 
-        Returns (hyp array, optimize_result, None).
+        Returns (hyp array, optimize_result, sampling_result): the
+        sampler's result dict (``samples`` before thinning, ``f_vals``,
+        ``log_priors``, ``exit_flag``, ``R``, ``eff_N``, ``n_evals``; on
+        the device backend also ``n_sweeps``, the sweeps run, per chain for
+        chains as ``n_evals``), None for a MAP fit.
         """
         if options is None:
             options = {}
@@ -737,9 +773,13 @@ class GP:
         init_N = options.get("init_N", 2**10)
         init_method = options.get("init_method", "sobol")
         df_base = options.get("df_base", 7)
+        thin = options.get("thin", 5)
+        widths = options.get("widths", None)
         tol_opt = options.get("tol_opt", 1e-5)
+        tol_opt_mcmc = options.get("tol_opt_mcmc", 1e-3)
         sampler_name = options.get("sampler", "slicesample")
         s_N = options.get("n_samples", 10)
+        burn_in = options.get("burn", thin * s_N)
         lower_bounds = options.get("lower_bounds", "current")
         upper_bounds = options.get("upper_bounds", "current")
 
@@ -771,24 +811,17 @@ class GP:
             )
         if method != "exact":
             raise ValueError(f"Unknown fit method {method!r}")
-        if s_N > 0 and sampler_name != "laplace":
+        sampling = s_N > 0 and sampler_name != "laplace"
+        if sampling:
+            # The JAX package validates the name after the MAP
+            # (gpyreg_tpu/gp.py:1709-1717); here before any state changes.
             if sampler_name not in (
                 "slicesample", "slicelite", "covsample", "eissample",
                 "mala", "hmc",
             ):
                 raise ValueError("Unknown sampler!")
-            what = (
-                "the slicelite warm refit and its sampler"
-                if sampler_name == "slicelite"
-                else f"sampler {sampler_name!r}"
-            )
-            raise NotImplementedError(
-                f"fit with n_samples={s_N} needs {what}, which arrives "
-                "with the sampler slice (inference/sampling.py, "
-                "inference/device_slice.py); until then pass "
-                "options={'n_samples': 0} or {'sampler': 'laplace'} for "
-                "the MAP fit."
-            )
+            if sampler_name in _sampling.LATER:
+                raise NotImplementedError(_sampling.LATER[sampler_name])
 
         self.fit_timings = {}
         _t_start = time.perf_counter()
@@ -853,12 +886,25 @@ class GP:
         elif isinstance(hyp0, dict):
             hyp0 = self.hyperparameters_from_dict(hyp0)
 
-        # ``tol_opt_mcmc``, the looser tolerance of a MAP that only
-        # starts a sampler, comes back with the samplers.
-        tol = tol_opt
+        # --- slicelite warm-refit shortcut (gplite_train.m:178-197) ---
+        # When the previous hyperposterior samples still cover the new
+        # posterior well, skip the design and MAP and refresh each
+        # previous sample with a few no-adapt slice sweeps.
+        if sampler_name == "slicelite" and s_N > 0:
+            warm = _sampling.slicelite_ess(self, hyp0, options, thin)
+            if warm is not None:
+                self.fit_report = {"restarts": [], "design_best": None}
+                return _sampling.slicelite_warm_refit(
+                    self, warm, s_N, LB, UB, PLB, PUB, widths, options,
+                    _t_start,
+                )
+
+        tol = tol_opt_mcmc if sampling else tol_opt
 
         ## Space-filling design + multistart MAP (inference/fit_phases).
-        hyp, nll, opt_results, opts_N, _, _, y0 = _fit_phases.design_and_map(
+        (
+            hyp, nll, opt_results, opts_N, widths_default, X0, y0,
+        ) = _fit_phases.design_and_map(
             self,
             hyp0,
             LB,
@@ -883,16 +929,54 @@ class GP:
         if opts_N > 0:
             optimize_result = opt_results[np.argmin(nll)]
             hyp_start = hyp[np.argmin(nll), :].copy()
+            f_start = float(np.min(nll))
         else:
             optimize_result = None
             hyp_start = hyp[0, :].copy()
+            f_start = None
 
-        hyp_start = np.reshape(hyp_start, (1, -1))
-        self.update(hyp=hyp_start)
+        if not sampling:
+            hyp_start = np.reshape(hyp_start, (1, -1))
+            self.update(hyp=hyp_start)
+            self.fit_timings["posterior_s"] = (
+                time.perf_counter() - _t_start
+                - sum(self.fit_timings.values())
+            )
+            return hyp_start, optimize_result, None
+
+        ## Slice sampling of the hyperposterior (inference/sampling.py).
+        if widths is None:
+            widths = widths_default
+        else:
+            widths = np.minimum(widths, widths_default)
+        sampling_result, thin = _sampling.run_sampling(
+            self,
+            sampler_name=sampler_name,
+            options=options,
+            s_N=s_N,
+            thin=thin,
+            burn_in=burn_in,
+            widths=widths,
+            hyp_start=hyp_start,
+            f_start=f_start,
+            # Candidate pool for the non-finite-start fallback: the fused
+            # path's sorted design with its values.
+            cand=X0 if X0 is not None else hyp,
+            cand_vals=y0 if X0 is not None else None,
+            LB=LB,
+            UB=UB,
+        )
+        hyp = sampling_result["samples"][thin - 1 :: thin, :]
+        self.fit_timings["sample_s"] = (
+            time.perf_counter() - _t_start - sum(self.fit_timings.values())
+        )
+        _sampling.store_warm_state(self, hyp, sampling_result, thin, widths)
+
+        self.update(hyp=hyp)
         self.fit_timings["posterior_s"] = (
             time.perf_counter() - _t_start - sum(self.fit_timings.values())
         )
-        return hyp_start, optimize_result, None
+        return hyp, optimize_result, sampling_result
 
     # ------------------------------------------------------------------
     # Likelihood / posterior evaluations
@@ -1050,6 +1134,130 @@ class GP:
         if return_lpd:
             return mu, s2, lpd
         return mu, s2
+
+    # ------------------------------------------------------------------
+    # Sampling the surrogate
+    # ------------------------------------------------------------------
+
+    def _require_factors(self, what: str):
+        """Raise for operations that need the posterior factors when they
+        are absent (``gpyreg_tpu/gp.py:1300-1310`` raises for matrix-free
+        posteriors, which the port does not have; here the factors are
+        absent after ``clean()`` or ``update(compute_posterior=False)``)."""
+        if self.posteriors is None or any(
+            p.alpha is None for p in self.posteriors
+        ):
+            raise ValueError(
+                f"{what} requires the posterior factors; rebuild them with "
+                "update(compute_posterior=True)."
+            )
+
+    def _mixture_mean_variance_fn(self, compute_var: bool = True):
+        """(x (D,) -> (mu, s2)) mixture predictive over the current
+        posteriors (``gpyreg_tpu/gp.py:2736-2783``), as 0-d tensors on the
+        device; ``x`` is a tensor, cast to the GP's dtype and device.  Each
+        call builds K(X, x) of every sample with the kernel tile (a float32
+        GP on the card).  Without ``compute_var`` s2 is None and no
+        triangular solve runs."""
+        self._require_factors("fmin/sample surrogate optimization")
+        spec = self._spec()
+        X, _, _ = self._data()
+        posts = list(self.posteriors)
+        s_N = len(posts)
+        # Each sample's hyperparameters on the device once, not a copy a
+        # density.
+        hyps = [self._tensor(p.hyp) for p in posts]
+
+        def mu_s2(x):
+            xs = torch.reshape(x, (1, -1)).to(dtype=X.dtype, device=X.device)
+            mus, s2s = [], []
+            for p, h in zip(posts, hyps):
+                if not compute_var:
+                    mus.append(mean_branch(spec, h, p.alpha, X, None, xs))
+                    continue
+                branch = chol_branch if p.L_chol else inv_branch
+                m, v = branch(spec, h, p.alpha, p.L, p.sW, X, None, xs)
+                mus.append(m)
+                s2s.append(v)
+            mu_all = torch.cat(mus)
+            mu_bar = torch.mean(mu_all)
+            if not compute_var:
+                return mu_bar, None
+            s2_all = torch.clamp(torch.cat(s2s), min=0.0)
+            if s_N > 1:
+                v = torch.sum((mu_all - mu_bar) ** 2) / (s_N - 1)
+            else:
+                v = 0.0
+            return mu_bar, torch.mean(s2_all) + v
+
+        return mu_s2
+
+    def sample(
+        self,
+        n_samples: int,
+        x0=None,
+        log_prior=None,
+        beta: float = 0.0,
+        var_thresh: float = np.inf,
+        bounds=None,
+        key=None,
+    ):
+        """Draw samples from the density exp(GP posterior mean) by slice
+        sampling on the surrogate surface (``gpyreg_tpu/gp.py:2828-2890``;
+        matlab/gplite/gplite_sample.m:1-119, slicesample branch).
+
+        The target is the mixture predictive mean, optionally penalized by
+        the predictive uncertainty (``beta`` * sqrt(s2) lower confidence
+        and the VarThresh clamp of log_gpfun, gplite_sample.m:108-118); the
+        variance is computed only when ``beta != 0`` or ``var_thresh`` is
+        finite.  ``log_prior``, a function of x as a float64 CPU tensor
+        (D,), is added to the target.  ``key`` is a stream
+        (``inference.device_slice.make_stream``) or an integer seed; None
+        draws the seed from numpy's global stream.  Each density is one
+        mixture evaluation on the GP's device.
+
+        Returns an (n_samples, D) array.
+        """
+        X, y = self.X, self.y
+        widths = np.std(X, axis=0, ddof=0)
+        if bounds is None:
+            diam = np.max(X, axis=0) - np.min(X, axis=0)
+            LB = np.min(X, axis=0) - 10 * diam
+            UB = np.max(X, axis=0) + 10 * diam
+        else:
+            LB, UB = np.asarray(bounds[0]), np.asarray(bounds[1])
+
+        if x0 is None:
+            x0 = X[int(np.argmax(y.ravel())), :]
+        x0 = np.minimum(np.maximum(np.ravel(x0), LB), UB)
+
+        use_s2 = bool(np.isfinite(var_thresh) or beta != 0)
+        mu_s2 = self._mixture_mean_variance_fn(compute_var=use_s2)
+
+        def log_f(x):
+            mu, s2 = mu_s2(x)
+            if use_s2:
+                mu = torch.where(s2 >= var_thresh, mu - (s2 - var_thresh), mu)
+                mu = mu - beta * torch.sqrt(s2)
+            mu = float(mu)
+            if log_prior is not None:
+                mu = mu + float(log_prior(x))
+            return mu
+
+        if key is None:
+            key = int(np.random.randint(0, 2**31 - 1))
+        with torch.no_grad():
+            res, _ = _device_slice.sample(
+                log_f,
+                x0,
+                key,
+                widths=widths,
+                LB=LB,
+                UB=UB,
+                n_samples=n_samples,
+                burn=int(np.ceil(n_samples / 10)),
+            )
+        return res["samples"]
 
     # ------------------------------------------------------------------
     # Serialization

@@ -78,12 +78,22 @@ def _prior_moments(spec, hyp, xs):
     return hyp_cov, m_star, kss
 
 
+def _mean(spec, hyp, alpha, X, n_real, xs):
+    """(predictive mean, K(X, xs), prior variance at xs) of one sample."""
+    hyp_cov, m_star, kss = _prior_moments(spec, hyp, xs)
+    Ks = _masked_ks(spec, hyp_cov, X, n_real, xs)
+    return m_star + (Ks.T @ alpha)[:, 0], Ks, kss
+
+
+def mean_branch(spec: ModelSpec, hyp, alpha, X, n_real, xs):
+    """Predictive mean alone, the same in both parametrizations."""
+    return _mean(spec, hyp, alpha, X, n_real, xs)[0]
+
+
 def chol_branch(spec: ModelSpec, hyp, alpha, L_upper, sW, X, n_real, xs):
     """Predictive mean and variance of one sample stored in the Cholesky
     parametrization (``L_upper`` upper factor of the scaled matrix)."""
-    hyp_cov, m_star, kss = _prior_moments(spec, hyp, xs)
-    Ks = _masked_ks(spec, hyp_cov, X, n_real, xs)
-    mu = m_star + (Ks.T @ alpha)[:, 0]
+    mu, Ks, kss = _mean(spec, hyp, alpha, X, n_real, xs)
     # L_upper^T V = sW * Ks: a lower-triangular solve on the transpose.
     V = torch.linalg.solve_triangular(L_upper.mT, sW * Ks, upper=False)
     s2 = kss - torch.sum(V * V, dim=0)
@@ -93,9 +103,7 @@ def chol_branch(spec: ModelSpec, hyp, alpha, L_upper, sW, X, n_real, xs):
 def inv_branch(spec: ModelSpec, hyp, alpha, L_neg_inv, sW, X, n_real, xs):
     """Predictive mean and variance of one sample stored in the explicit
     negative-inverse parametrization."""
-    hyp_cov, m_star, kss = _prior_moments(spec, hyp, xs)
-    Ks = _masked_ks(spec, hyp_cov, X, n_real, xs)
-    mu = m_star + (Ks.T @ alpha)[:, 0]
+    mu, Ks, kss = _mean(spec, hyp, alpha, X, n_real, xs)
     s2 = kss + torch.sum(Ks * (L_neg_inv @ Ks), dim=0)
     return mu, s2
 

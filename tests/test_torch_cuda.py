@@ -372,3 +372,82 @@ def test_fit_on_card_runs_through_both_kernels(cuda):
     assert floor[D + 1] > g.lower_bounds[D + 1] and hyp[0, D + 1] >= floor[D + 1]
     _, _, res64, _ = fit(dtype=np.float64, device="cpu")
     assert abs(res.fun - res64.fun) < 1e-3 * max(1.0, abs(res64.fun))
+
+
+def test_sampling_fit_on_card_runs_through_the_kernel_tile(cuda, monkeypatch):
+    """A float32 ``GP.fit`` with hyperposterior sampling on the card
+    (N = 1024, defaults but for the design and chain lengths): the
+    samples lie in the fit's bounds, each kept sample's f_vals +
+    log_priors is its log posterior recomputed on the card, and every
+    density of the chain launched the kernel tile on the TMA path (at
+    least ``n_evals`` launches in the sampling window, the rest jitter
+    retries), while the chain launches no gradient tile."""
+    import gpyreg_tpu_torch as gt
+    from gpyreg_tpu_torch.inference import sampling
+
+    rng = np.random.default_rng(4)
+    N, D = 1024, 3
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.3 * rng.normal(size=(N, 1))
+    window = {}
+    run = sampling.run_sampling
+
+    def counted(*args, **kw):
+        TK.reset_launches()
+        out = run(*args, **kw)
+        torch.cuda.synchronize()
+        window.update(TK.LAUNCHES)
+        return out
+
+    monkeypatch.setattr(sampling, "run_sampling", counted)
+    g = gt.GP(D, gt.covariance_functions.SquaredExponential(),
+              gt.mean_functions.ConstantMean(),
+              gt.noise_functions.GaussianNoise(constant_add=True), dtype=np.float32)
+    np.random.seed(1)
+    TK.reset_launches()
+    hyp, res, sr = g.fit(X, y, options={"n_samples": 6, "thin": 2, "burn": 6,
+                                        "init_N": 32, "opts_N": 1})
+    assert hyp.shape == (6, D + 3) and res is not None
+    assert np.all(hyp >= g.lower_bounds) and np.all(hyp <= g.upper_bounds)
+    fns, args = g._obj_args()
+    for s, f, lp in zip(sr["samples"], sr["f_vals"][:, 0], sr["log_priors"]):
+        ref = float(fns["log_post_chain_raw"](s, *args))
+        assert abs(f + lp - ref) <= 1e-5 * max(1.0, abs(ref))
+    assert window["self"] >= sr["n_evals"] > 0
+    assert window["vjp"] == 0 and window["cross"] == 0
+    assert not any(v for k, v in window.items() if k.endswith("_unaligned"))
+    assert all(bool(torch.all(torch.isfinite(p.alpha))) for p in g.posteriors)
+
+
+def test_gp_sample_on_card_launches_one_cross_column_per_posterior(cuda):
+    """``GP.sample`` on a float32 card GP: each density builds K(X, x) of
+    each posterior with the kernel tile on one column, which is the path
+    without TMA (M = 1), and nothing else launches; the samples are
+    finite and in bounds, and at beta 0 the density is ``predict``'s
+    mixture mean."""
+    from gpyreg_tpu_torch.convert import gp_from_arrays
+
+    rng = np.random.default_rng(6)
+    N, D, S = 512, 3, 3
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.1 * rng.normal(size=(N, 1))
+    hyp = np.zeros((S, D + 3))
+    hyp[:, D + 1] = np.log(0.1)
+    hyp += 0.05 * rng.normal(size=hyp.shape)
+    meta = {"D": D, "cov_kind": "se", "mean_kind": "const",
+            "noise_parameters": [1, 0, 0], "dtype": "float32"}
+    g = gp_from_arrays(meta, X, y, None, hyp, cuda)
+    TK.reset_launches()
+    samples = g.sample(20, key=3)
+    launches = dict(TK.LAUNCHES)
+    assert samples.shape == (20, D) and np.all(np.isfinite(samples))
+    lb = X.min(axis=0) - 10 * (X.max(axis=0) - X.min(axis=0))
+    ub = X.max(axis=0) + 10 * (X.max(axis=0) - X.min(axis=0))
+    assert np.all(samples >= lb) and np.all(samples <= ub)
+    n = launches["cross_unaligned"]
+    assert n > 0 and n % S == 0
+    assert launches == {**dict.fromkeys(TK.LAUNCHES, 0), "cross_unaligned": n}
+    mu_s2 = g._mixture_mean_variance_fn(compute_var=False)
+    m, _ = mu_s2(torch.tensor(samples[0]))
+    mu, _ = g.predict(samples[:1])
+    assert abs(float(m) - mu[0, 0]) <= 1e-4 * max(1.0, abs(mu[0, 0]))

@@ -221,13 +221,9 @@ def test_float32_fit_on_the_cpu_respects_the_noise_floor():
 
 
 LEFT_OUT = {
-    "default_n_samples": ({}, "sampler slice"),
-    "slicesample": ({"n_samples": 4}, "sampler slice"),
-    "slicelite": ({"n_samples": 4, "sampler": "slicelite"}, "warm refit"),
-    "covsample": ({"n_samples": 4, "sampler": "covsample"}, "sampler slice"),
-    "eissample": ({"n_samples": 4, "sampler": "eissample"}, "sampler slice"),
-    "mala": ({"n_samples": 4, "sampler": "mala"}, "sampler slice"),
-    "hmc": ({"n_samples": 4, "sampler": "hmc"}, "sampler slice"),
+    "eissample": ({"n_samples": 4, "sampler": "eissample"}, "gradient samplers"),
+    "mala": ({"n_samples": 4, "sampler": "mala"}, "gradient samplers"),
+    "hmc": ({"n_samples": 4, "sampler": "hmc"}, "gradient samplers"),
     "cg": ({"n_samples": 0, "method": "cg"}, "matrix-free"),
     "auto_above_threshold": ({"n_samples": 0, "method": "auto",
                               "cg_threshold_n": 10}, "matrix-free"),

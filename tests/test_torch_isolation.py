@@ -48,17 +48,19 @@ def test_import_leaves_jax_out():
     )
     assert proc.returncode == 0, proc.stderr
     assert len(modules) >= 14
-    for name in ("inference.map_optimize", "inference.fit_phases"):
+    for name in ("inference.map_optimize", "inference.fit_phases",
+                 "inference.device_slice", "inference.sampling", "slice_sample"):
         assert "gpyreg_tpu_torch." + name in modules
 
 
 def test_inference_subpackage_alone_leaves_jax_out():
-    """``import gpyreg_tpu_torch.inference`` and its two modules, with
+    """``import gpyreg_tpu_torch.inference`` and its modules, with
     nothing else asked for, pull in torch, numpy and scipy only."""
     code = (
         "import sys\n"
         "import gpyreg_tpu_torch.inference\n"
-        "from gpyreg_tpu_torch.inference import fit_phases, map_optimize\n"
+        "from gpyreg_tpu_torch.inference import (device_slice, fit_phases,\n"
+        "                                        map_optimize, sampling)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'gpyreg_tpu'))\n"
         "assert not bad, bad\n"

@@ -1,0 +1,68 @@
+"""A replay of the JAX package's chain key tree as a random stream of the
+port (``gpyreg_tpu_torch.inference.device_slice``), for the tests that
+hold the port's chains to the JAX package's proposal by proposal.
+
+The splits are those of ``gpyreg_tpu/inference/device_slice.py``: per
+sweep ``key, k_perm = split(key)`` and the scan order (``_sweep``); per
+coordinate ``key, k_dim = split(key)``, then ``k_level, k_pos, k_prop =
+split(k_dim, 3)`` and per proposal ``k_prop, ku = split(k_prop)``
+(``_dim_body_factory``); per random-direction move ``key, k_dir, k_level,
+k_pos, k_prop = split(key, 5)`` (``_rd_sweep``); per chain
+``split(key, B)`` (``sample_chains``).  ``patch_streams`` makes the
+port's ``make_stream(seed)`` return ``replay(seed)``, the stream of
+``jax.random.key(seed)``, which is the key the JAX package builds from
+the same integer.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+import gpyreg_tpu  # noqa: F401  (float64 on: the chains' uniforms are float64)
+from gpyreg_tpu_torch.inference import device_slice as TDS
+
+_TINY = float(np.finfo(np.float64).tiny)
+
+
+class _Move:
+    def __init__(self, k_level, k_pos, k_prop):
+        self.k_level, self.k_pos, self.k_prop = k_level, k_pos, k_prop
+
+    def level(self):
+        return float(jax.random.uniform(self.k_level, minval=_TINY))
+
+    def position(self):
+        return float(jax.random.uniform(self.k_pos))
+
+    def proposal(self):
+        self.k_prop, ku = jax.random.split(self.k_prop)
+        return float(jax.random.uniform(ku))
+
+
+class JaxReplay:
+    def __init__(self, key):
+        self.key = key
+
+    def permutation(self, D):
+        self.key, k_perm = jax.random.split(self.key)
+        return np.asarray(jax.random.permutation(k_perm, D))
+
+    def coordinate(self):
+        self.key, k_dim = jax.random.split(self.key)
+        return _Move(*jax.random.split(k_dim, 3))
+
+    def direction(self, D):
+        self.key, k_dir, k_level, k_pos, k_prop = jax.random.split(self.key, 5)
+        u = np.asarray(jax.random.normal(k_dir, (D,), dtype=jnp.float64))
+        return u, _Move(k_level, k_pos, k_prop)
+
+    def split(self, B):
+        return [JaxReplay(k) for k in jax.random.split(self.key, B)]
+
+
+def replay(seed):
+    return JaxReplay(jax.random.key(int(seed)))
+
+
+def patch_streams(monkeypatch):
+    monkeypatch.setattr(TDS, "make_stream", replay)

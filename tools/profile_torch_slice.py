@@ -11,7 +11,10 @@ and the training GP of bench.py's workload (N = 4096, D = 8, 8
 hyperparameter vectors, float32, ``chip_smoke._train_data``), takes the
 ``fit_bench`` workload of ``chip_smoke.py`` (``GP.fit`` without sampling
 at its defaults, N = 4096, D = 8, float32, a new GP for each fit, span
-``fit_4096``), and then:
+``fit_4096``) and its ``fit_sample_bench`` workload (``GP.fit`` with
+hyperposterior sampling at its defaults on the same data, span
+``fit_sample_4096``, with the chain's own span ``fit_sample_4096_chain``
+around ``inference.sampling.run_sampling``), and then:
 
 1. warms up with one ``update``, one ``predict`` and one batched NLML
    value and gradient (``get_fns(...)["nlz_grad"]``) of each GP, and one
@@ -20,9 +23,10 @@ at its defaults, N = 4096, D = 8, float32, a new GP for each fit, span
    gradient of each GP (spans ``nlml_grad_16384`` and ``nlml_grad_4096``)
    under ``torch.profiler`` (CPU and CUDA activities), each inside a
    ``record_function`` span that ends with a synchronize, and exports
-   the Chrome trace to ``--trace``; then the fit in a profiler run
-   and a trace file of its own (``--trace`` with ``.fit.json`` appended,
-   removed once it is read: it holds every kernel of 1024 design rows).
+   the Chrome trace to ``--trace``; then each fit in a profiler run
+   and a trace file of its own (``--trace`` with ``.fit_4096.json`` or
+   ``.fit_sample_4096.json`` appended, removed once it is read: it holds
+   every kernel of 1024 design rows, and of the chain).
    From the trace's events it reports, for each span: its wall time; the
    device busy time, the union of the intervals of the ``kernel``,
    ``gpu_memcpy`` and ``gpu_memset`` events inside the span (device
@@ -31,10 +35,12 @@ at its defaults, N = 4096, D = 8, float32, a new GP for each fit, span
    time of each kernel name (the largest 12), as a share of the wall;
 3. runs each span three times more without the profiler, on the host
    clock and ending with a synchronize, and reports the median wall and
-   the idle share 1 - busy / that wall.  The profiler's CPU tracing
-   stretches the host's share of a span whose wall the host sets; this
-   share leaves that cost out (device busy time is taken from step 2);
-4. runs each batched NLML value and gradient, and the fit, once more
+   the idle share 1 - busy / that wall (for the chain's span, the
+   median of the fits' ``fit_timings["sample_s"]``).  The profiler's CPU
+   tracing stretches the host's share of a span whose wall the host
+   sets; this share leaves that cost out (device busy time is taken from
+   step 2);
+4. runs each batched NLML value and gradient, and each fit, once more
    under its own profiler run and reports each ``aten`` operator's self
    device time (``key_averages``: the kernels the operator launches itself, not
    those of the operators it calls, so no kernel is counted twice) as a
@@ -152,8 +158,9 @@ def main():
     import numpy as np
 
     from gpyreg_tpu_torch import gp as gp_mod
-    from chip_smoke import (D, D_TR, FIT_BENCH, M_TEST, N, N_TR, SEED, _data,
-                            _fit_data, _se_gp, _train_data)
+    from chip_smoke import (D, D_TR, FIT_BENCH, FIT_SAMPLE_BENCH, M_TEST, N,
+                            N_TR, SEED, _data, _fit_data, _se_gp, _train_data)
+    from gpyreg_tpu_torch.inference import sampling
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -178,10 +185,32 @@ def main():
     fit_n, fit_d, fit_options = FIT_BENCH
     fit_X, fit_y = _fit_data(fit_n, fit_d, SEED + 3)
 
-    def fit():
+    def fit(options=fit_options):
         g = _se_gp(fit_d, np.float32)
         np.random.seed(SEED)
-        g.fit(fit_X, fit_y, options=dict(fit_options))
+        g.fit(fit_X, fit_y, options=dict(options))
+        return g
+
+    # The sampled fit takes fit_bench's data; its chain gets a span of its
+    # own (record_function costs nothing while no profiler runs).
+    _, samp_n, samp_d, samp_options = FIT_SAMPLE_BENCH
+    if (samp_n, samp_d) != (fit_n, fit_d):
+        raise SystemExit("fit_sample_bench and fit_bench differ in size")
+    samp_span = f"fit_sample_{samp_n}"
+    run_sampling = sampling.run_sampling
+
+    def chain_span(*args, **kw):
+        with torch.profiler.record_function(samp_span + "_chain"):
+            out = run_sampling(*args, **kw)
+            torch.cuda.synchronize()
+        return out
+
+    sampling.run_sampling = chain_span
+    sample_s = []
+
+    def fit_sample():
+        g = fit(samp_options)
+        sample_s.append(g.fit_timings["sample_s"] * 1e3)
         return g
 
     nlml_grad(gp, hyp)
@@ -201,10 +230,14 @@ def main():
         ("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
         ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
     )
-    fit_span = ((f"fit_{fit_n}", fit),)
-    fit_trace = args.trace + ".fit.json"
+    fit_spans = ((f"fit_{fit_n}", fit), (samp_span, fit_sample))
     host, spans = {}, {}
-    for trace, fns in ((args.trace, span_fns), (fit_trace, fit_span)):
+    runs = [(args.trace, span_fns, ())] + [
+        (f"{args.trace}.{name}.json", ((name, fn),),
+         (samp_span + "_chain",) if name == samp_span else ())
+        for name, fn in fit_spans
+    ]
+    for trace, fns, inner in runs:
         with torch.profiler.profile(activities=acts) as prof:
             for name, fn in fns:
                 t0 = time.perf_counter()
@@ -214,9 +247,11 @@ def main():
                 host[name] = (time.perf_counter() - t0) * 1e3
         prof.export_chrome_trace(trace)
         del prof
-        spans.update(_spans(trace, tuple(name for name, _ in fns)))
-    os.remove(fit_trace)
-    for name, fn in span_fns + fit_span:
+        spans.update(_spans(trace, tuple(name for name, _ in fns) + inner))
+        if trace != args.trace:
+            os.remove(trace)
+    host[samp_span + "_chain"] = sample_s.pop()
+    for name, fn in span_fns + fit_spans:
         walls = []
         for _ in range(3):
             torch.cuda.synchronize()
@@ -224,6 +259,14 @@ def main():
             fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
+        if name == samp_span:
+            r = spans[name + "_chain"]
+            r["host_wall_ms"] = host[name + "_chain"]
+            r["unprofiled_wall_ms"] = sorted(sample_s)[1]
+            r["unprofiled_walls_ms"] = list(sample_s)
+            r["device_idle_share_unprofiled"] = (
+                1.0 - r["device_busy_ms"] / r["unprofiled_wall_ms"]
+            )
         r = spans[name]
         r["host_wall_ms"] = host[name]
         r["unprofiled_wall_ms"] = sorted(walls)[1]
@@ -245,7 +288,7 @@ def main():
     ops = {}
     for name, fn in (("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
                      ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
-                     fit_span[0]):
+                     *fit_spans):
         ops[name] = _op_table(fn, acts)
         print(f"{name} by operator: wall {ops[name]['wall_ms']:.1f} ms")
         for r in ops[name]["ops"]:
