@@ -103,7 +103,16 @@ Phases, each of which raises on failure:
 18. gp_sample: ``GP.sample(100)`` on the fit_sample_config5 GP (8
     posteriors, N = 16384) and ``GP.sample(50, beta=0.5)`` on the
     fit_sample_bench GP (10 posteriors, N = 4096), rebuilt from its data
-    and samples because the refit of phase 16 changed that GP.
+    and samples because the refit of phase 16 changed that GP;
+19. fit_mala_bench: ``GP.fit`` with the sampler "mala" on fit_bench's data
+    (N = 4096, D = 8), ``init_N`` 256, ``opts_N`` 1, the other defaults
+    (thin and burn-in scaled by the 11 hyperparameters: 1,100 steps);
+20. fit_hmc_bench: the same with "hmc", ``hmc_steps`` 10 (100 iterations);
+21. fit_eissample_bench: the same with "eissample" (24 walkers, 53
+    iterations);
+22. fit_mala_config5: "mala" at N = 16384, D = 10, ``init_N`` 256,
+    ``opts_N`` 2, ``n_samples`` 8, the chain cut to ``thin`` 1, ``burn`` 2
+    (130 steps, not the default 1,040).
 
 For each sampled fit it prints the phase seconds, ``n_evals`` (density
 calls), ms a density, densities a move (``n_evals`` over sweeps and free
@@ -121,6 +130,17 @@ alpha is finite.  For gp_sample: finite samples in bounds, only
 count, and at 3 samples the density (the float32 mixture mean) within
 1e-4 relative of the mixture mean of a float64 build's ``predict``.
 Short chains may flag non-convergence; that is printed, not checked.
+
+For phases 19-22 it prints the phase seconds, the chain's density calls
+(value and gradient for MALA and HMC, counted by wrapping the density the
+sampler is given), its steps (counted on its random stream), ms a step
+(an iteration, a walker move), ms a call, the acceptance rate, the exit
+flag, max R-hat and min eff_N.  Checks: those of the sampled fits above
+on the samples, their values and the chain's self launches; the gradient
+tile launched at least once a value-and-gradient call in the MALA and
+HMC chains' windows and never in the ensemble chain's; at fit_mala_bench,
+the float32 value and gradient of ``log_post_raw`` at the last two kept
+samples within max(1e-3, 10 kappa eps32) of a float64 build's.
 
 Prints a JSON line of per-kernel results, then the card's name and power
 limit, then, last, the ``{"ok": true, "device": ...}`` line.  Imports
@@ -163,6 +183,18 @@ FIT_SAMPLE_CONFIG5 = ("fit_sample_config5", N, D,
 COVSAMPLE_CHAINS = ("covsample_chains_bench", N_TR, D_TR,
                     {"sampler": "covsample", "n_chains": 2, "n_samples": 10,
                      "init_N": 256, "opts_N": 1})
+# The gradient samplers' and the ensemble sampler's fits on fit_bench's
+# data, and MALA at config 5 with its chain cut to thin 1, burn 2: 104 kept
+# and 26 burn-in steps, not the default 1,040.
+FIT_MALA_BENCH = ("fit_mala_bench", N_TR, D_TR,
+                  {"sampler": "mala", "init_N": 256, "opts_N": 1})
+FIT_HMC_BENCH = ("fit_hmc_bench", N_TR, D_TR,
+                 {"sampler": "hmc", "hmc_steps": 10, "init_N": 256, "opts_N": 1})
+FIT_EISSAMPLE_BENCH = ("fit_eissample_bench", N_TR, D_TR,
+                       {"sampler": "eissample", "init_N": 256, "opts_N": 1})
+FIT_MALA_CONFIG5 = ("fit_mala_config5", N, D,
+                    {"sampler": "mala", "init_N": 256, "opts_N": 2,
+                     "n_samples": 8, "thin": 1, "burn": 2})
 REFIT_ROWS = 4
 GP_SAMPLE_N = (100, 50)
 VJP_COVS = ("se", "m1", "m3", "m5", "rq", "se_iso", "m1_iso")
@@ -899,27 +931,70 @@ def phase_fit(name, n, d, options, compare_float64):
             "stop": [r.stop for r in restarts]}
 
 
+class _CountingStream:
+    """A chain's random stream that counts the steps (MALA), iterations
+    (HMC) or ensemble iterations it serves."""
+
+    STEPS = ("langevin", "hamiltonian", "ensemble_iteration")
+
+    def __init__(self, stream):
+        self.stream, self.steps = stream, 0
+
+    def __getattr__(self, name):
+        attr = getattr(self.stream, name)
+        if name not in self.STEPS:
+            return attr
+
+        def counted(*args):
+            self.steps += 1
+            return attr(*args)
+        return counted
+
+
 def _count_chain_windows():
-    """Wrap the port's two chain drivers so that each call records the
+    """Wrap the port's chain drivers so that each call records the
     launches made inside it (the chain's window), without resetting the
-    counts; returns the list the windows are appended to."""
+    counts; returns the list the windows are appended to.  The windows of
+    the MALA, HMC and ensemble chains also hold ``calls``, the calls of
+    the chain's density (value and gradient for MALA and HMC), ``steps``,
+    the steps or iterations its stream served, and for the ensemble
+    ``walkers``."""
     from gpyreg_tpu_torch.inference import device_slice as DS
+    from gpyreg_tpu_torch.inference import ensemble_slice as ES
+    from gpyreg_tpu_torch.inference import hmc as HMC
+    from gpyreg_tpu_torch.inference import mala as MALA
     from gpyreg_tpu_torch.ops import tile_kernels as TK
 
     windows = []
 
-    def wrap(fn):
+    def wrap(fn, count=False):
         def run(*args, **kw):
+            calls = [0]
+            if count:  # (log_f, x0, stream, ...)
+                log_f, x0, stream = args[:3]
+
+                def counted(x, *a):
+                    calls[0] += 1
+                    return log_f(x, *a)
+                stream = _CountingStream(stream)
+                args = (counted, x0, stream) + args[3:]
             torch.cuda.synchronize()
             before = dict(TK.LAUNCHES)
             out = fn(*args, **kw)
             torch.cuda.synchronize()
-            windows.append({k: TK.LAUNCHES[k] - before[k] for k in before})
+            w = {k: TK.LAUNCHES[k] - before[k] for k in before}
+            if count:
+                w.update(calls=calls[0], steps=stream.steps)
+                if np.ndim(out[1]) == 2:  # the ensemble's final walkers
+                    w["walkers"] = out[1].shape[0]
+            windows.append(w)
             return out
         return run
 
     DS.sample = wrap(DS.sample)
     DS.sample_chains = wrap(DS.sample_chains)
+    for mod in (MALA, HMC, ES):
+        mod.sample = wrap(mod.sample, count=True)
     return windows
 
 
@@ -929,9 +1004,9 @@ def _sum_window(windows, start):
 
 
 def _check_samples(name, gp, X, y, options, hyp, sr, opt_res, launches, window,
-                   compare_float64):
-    """The checks of the module docstring on one sampled fit; prints the
-    chain's numbers and returns them."""
+                   n_dens, compare_float64):
+    """The checks of the module docstring on one sampled fit whose chain
+    made ``n_dens`` density calls."""
     d = X.shape[1]
     hyp_N = d + 3
     s_N = options.get("n_samples", 10)
@@ -951,12 +1026,11 @@ def _check_samples(name, gp, X, y, options, hyp, sr, opt_res, launches, window,
     if not worst <= 1e-5:
         raise AssertionError(f"{name}: chain values differ from the recomputed "
                              f"log posterior by {worst:.3e}")
-    n_evals = int(np.sum(sr["n_evals"]))
     print(f"  chain window launches {window}: self {window['self']} against "
-          f"n_evals {n_evals}, so {window['self'] - n_evals} jitter retries")
-    if window["self"] < n_evals:
+          f"{n_dens} densities, so {window['self'] - n_dens} jitter retries")
+    if window["self"] < n_dens:
         raise AssertionError(f"{name}: {window['self']} self launches for "
-                             f"{n_evals} densities")
+                             f"{n_dens} densities")
     nit = sum(r.nit for r in gp.fit_report["restarts"])
     if not (launches["vjp"] >= nit and launches["cross"] == 0
             and not any(v for k, v in launches.items()
@@ -984,7 +1058,6 @@ def _check_samples(name, gp, X, y, options, hyp, sr, opt_res, launches, window,
                 raise AssertionError(f"{name}: float32 log posterior at a "
                                      f"sample disagrees with float64")
         del gp64
-    return n_evals
 
 
 def phase_fit_sample(name, n, d, options, windows, gp=None, data=None,
@@ -1041,10 +1114,88 @@ def phase_fit_sample(name, n, d, options, windows, gp=None, data=None,
               f"{[r.nit for r in gp.fit_report['restarts']]} iterations "
               f"({[r.stop for r in gp.fit_report['restarts']]})")
     _check_samples(name, gp, X, y, options, hyp, sr, res, launches, window,
-                   compare_float64)
+                   n_evals, compare_float64)
     return gp, (X, y), {"launches": launches, "timings": dict(tm), "wall": wall,
                         "n_evals": n_evals, "peak": peak, "window": window,
                         "sr": sr, "res": res}
+
+
+def phase_fit_mala_hmc_ensemble(name, n, d, options, windows,
+                                grad_check=False):
+    """``GP.fit`` with the sampler "mala", "hmc" or "eissample" on the card
+    (on ``_fit_data``), with the checks of the module docstring.  Returns
+    the numbers of the phase."""
+    from gpyreg_tpu_torch.core.nlml import value_and_grad
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    X, y = _fit_data(n, d, SEED + 3)
+    gp = _se_gp(d, np.float32)
+    sampler = options["sampler"]
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    start = len(windows)
+    t0 = time.perf_counter()
+    hyp, res, sr = gp.fit(X, y, options=dict(options))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    window = _sum_window(windows, start)
+    tm = gp.fit_timings
+    calls, steps = window["calls"], window["steps"]
+    ms_call = tm["sample_s"] / calls * 1e3
+    if sampler == "eissample":
+        moves = steps * window["walkers"]
+        per = (f"{steps} iterations x {window['walkers']} walkers = {moves} "
+               f"walker moves, {tm['sample_s'] / moves * 1e3:.3f} ms a walker "
+               f"move, {calls / moves:.2f} densities a move; {calls} "
+               f"densities, {ms_call:.3f} ms a density")
+        accept = "n/a"
+    else:
+        unit = "step" if sampler == "mala" else "iteration"
+        per = (f"{steps} {unit}s, {tm['sample_s'] / steps * 1e3:.3f} ms "
+               f"{'a step' if unit == 'step' else 'an iteration'}; {calls} "
+               f"value-and-gradient calls, {ms_call:.3f} ms a call")
+        accept = f"{sr['accept_rate']:.4f}"
+    R, eff = sr["R"], sr["eff_N"]
+    print(f"{name}: N={n} D={d} float32, options {options}: {wall:.3f} s = "
+          f"design {tm['design_s']:.3f} + optimize {tm['optimize_s']:.3f} + "
+          f"sample {tm['sample_s']:.3f} + posterior {tm['posterior_s']:.3f} s; "
+          f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    print(f"  sample_s {tm['sample_s']:.3f} s: {per}; acceptance {accept}")
+    print(f"  exit_flag {sr['exit_flag']}, max R "
+          f"{'n/a' if R is None else f'{float(np.max(R)):.3f}'}, min eff_N "
+          f"{'n/a' if eff is None else f'{float(np.min(eff)):.2f}'}")
+    _check_samples(name, gp, X, y, options, hyp, sr, res, launches, window,
+                   calls, compare_float64=False)
+    # MALA and HMC: at least one gradient tile a value-and-gradient call;
+    # the ensemble chain is value-only.
+    value_only = sampler == "eissample"
+    print(f"  chain window: vjp {window['vjp']} for {calls} "
+          f"{'densities (value only)' if value_only else 'value-and-gradient calls'}")
+    if window["vjp"] != 0 if value_only else window["vjp"] < calls:
+        raise AssertionError(f"{name}: the chain launched the gradient tile "
+                             f"{window['vjp']} times for {calls} calls")
+    if grad_check:
+        # The float32 value and gradient of log_post_raw at the last two
+        # kept samples against a float64 build on the card.
+        fns, args = gp._obj_args()
+        v32, g32 = value_and_grad(lambda h: fns["log_post_raw"](h, *args),
+                                  hyp[-2:], args[0])
+        gp64 = _se_gp(d, np.float64)
+        gp64.update(X_new=X, y_new=y, hyp=hyp[-2:], compute_posterior=False)
+        fns, args = gp64._obj_args()
+        v64, g64 = value_and_grad(lambda h: fns["log_post_raw"](h, *args),
+                                  hyp[-2:], args[0])
+        del gp64
+        Xd = torch.as_tensor(X, device=DEV)
+        kappas = [_kappa(Xd, h) for h in hyp[-2:]]
+        print(f"  log_post_raw value and gradient at the last 2 kept samples, "
+              f"float32 vs float64 on the card")
+        _grad_check(f"{name} sample", v32, g32, v64, g64, kappas)
+    return {"launches": launches, "window": window, "calls": calls}
 
 
 def phase_refit_slicelite(gp, data, windows):
@@ -1160,6 +1311,10 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
     vjpk = ("gpyreg_tpu_torch/csrc/kernel_vjp.cu",
             "gpyreg_tpu/ops/pallas_kernels.py:184")
     out = []
+    chain = {use: samp[k] for use, k in (
+        ("fit_mala_bench", "mala"), ("fit_hmc_bench", "hmc"),
+        ("fit_eissample_bench", "eissample"),
+        ("fit_mala_config5", "mala_config5"))}
     for use, key, counts, path in (
         ("serving self", "self", serve_launches, "self"),
         ("serving cross", "cross", serve_launches, "cross"),
@@ -1177,6 +1332,14 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
          samp["gp_sample"]["config5"]["launches"], "cross"),
         ("gp_sample bench cross column", "cross_col_bench",
          samp["gp_sample"]["bench"]["launches"], "cross"),
+        ("fit_mala_bench self", "self_train", chain["fit_mala_bench"]["launches"],
+         "self"),
+        ("fit_hmc_bench self", "self_train", chain["fit_hmc_bench"]["launches"],
+         "self"),
+        ("fit_eissample_bench self", "self_train",
+         chain["fit_eissample_bench"]["launches"], "self"),
+        ("fit_mala_config5 self", "self", chain["fit_mala_config5"]["launches"],
+         "self"),
     ):
         err, ms, plain_ms, n, m, d = kern[(key, "se")]
         # The one-column cross of GP.sample runs on the path without TMA.
@@ -1207,6 +1370,11 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
             }
         if use == "bench training self":
             e["python_float_ms"] = kern["python_float"][1]
+        phase = use[: -len(" self")]
+        if phase in chain:
+            # The chain's own launches and density calls.
+            e["chain_window_launches"] = chain[phase]["window"][path]
+            e["chain_calls"] = chain[phase]["calls"]
         out.append(e)
     for use, label, counts in (
         ("bench training", "bench", bench["launches"]),
@@ -1215,6 +1383,10 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
         ("fit_config5", "config5", fit_5["launches"]),
         ("fit_sample_bench", "bench", samp["bench"]["launches"]),
         ("fit_sample_config5", "config5", samp["config5"]["launches"]),
+        ("fit_mala_bench", "bench", chain["fit_mala_bench"]["launches"]),
+        ("fit_hmc_bench", "bench", chain["fit_hmc_bench"]["launches"]),
+        ("fit_eissample_bench", "bench", chain["fit_eissample_bench"]["launches"]),
+        ("fit_mala_config5", "config5", chain["fit_mala_config5"]["launches"]),
     ):
         err, rel, ms, plain_ms, n, d = vjp[(label, "se")]
         e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk,
@@ -1233,6 +1405,11 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
                 "bound_ms": _vjp_bound(un, ud, False)[0],
             }
             e["python_float_ms"] = vjp["python_float"][1]
+        if use in chain:
+            # MALA and HMC launch it once a value-and-gradient call; the
+            # ensemble chain is value-only (its MAP launches it).
+            e["chain_window_launches"] = chain[use]["window"]["vjp"]
+            e["chain_calls"] = chain[use]["calls"]
         out.append(e)
     return out
 
@@ -1284,6 +1461,14 @@ def main():
     _, _, samp["chains"] = phase_fit_sample(*COVSAMPLE_CHAINS, windows)
     torch.cuda.empty_cache()
     samp["gp_sample"] = phase_gp_sample(gp_5, data_5, data_b, hyp_b, windows)
+    del gp_5
+    for key, spec, grad_check in (("mala", FIT_MALA_BENCH, True),
+                                  ("hmc", FIT_HMC_BENCH, False),
+                                  ("eissample", FIT_EISSAMPLE_BENCH, False),
+                                  ("mala_config5", FIT_MALA_CONFIG5, False)):
+        torch.cuda.empty_cache()
+        samp[key] = phase_fit_mala_hmc_ensemble(*spec, windows,
+                                                grad_check=grad_check)
 
     print(json.dumps({"kernels": _kernels_line(kern, vjp, serve_launches,
                                                 bench, cfg5, fit_b, fit_5,

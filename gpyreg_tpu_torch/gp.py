@@ -26,9 +26,8 @@ tile (``ops/kernels.py`` dispatches).
 Left out, with the JAX package's lines:
 
 - until later slices, ``fit`` raising ``NotImplementedError`` for each:
-  the samplers "mala", "hmc" and "eissample" (:396-477 of
-  ``inference/sampling.py``), ``method="cg"`` and ``"auto"`` above its
-  threshold (:1618-1630), the ``outwarp_fun`` option (:1550-1558);
+  ``method="cg"`` and ``"auto"`` above its threshold (:1618-1630), the
+  ``outwarp_fun`` option (:1550-1558);
 - until later slices: ``fmin`` (:2785-2826, with the rest of serving: it
   differentiates the predictive mean in the test point), the rank-1
   branch of ``update`` (:1075-1212, with ``core/rank1.py``; a single new
@@ -705,7 +704,7 @@ class GP:
         options: dict = None,
     ):
         """Train hyperparameters: space-filling design (ranked on the
-        device) -> multistart MAP -> slice-sampled hyperposterior ->
+        device) -> multistart MAP -> sampled hyperposterior ->
         refreshed posteriors.  Options and defaults mirror reference
         gaussian_process.py:910-1232 (``opts_N`` 3, ``init_N`` 1024,
         ``init_method`` "sobol", ``df_base`` 7, ``tol_opt`` 1e-5,
@@ -735,13 +734,23 @@ class GP:
           from this object's last fit), 'covsample' (random-direction
           slice, gplite_train.m:392-407), or 'laplace' (MAP only,
           whatever ``n_samples``; the JAX package documents it so and
-          rejects it as an unknown sampler when ``n_samples > 0``).
-          'mala', 'hmc' and 'eissample' raise ``NotImplementedError``
-          until their slice.
+          rejects it as an unknown sampler when ``n_samples > 0``),
+          'mala' (Metropolis-adjusted Langevin, gplite_train.m:409-431;
+          ``n_samples``, ``thin`` and ``burn`` are scaled by the number
+          of hyperparameters), 'hmc' (leapfrog HMC, :433-447) or
+          'eissample' (ensemble slice sampling, 2 (hyp_N + 1) walkers
+          from a jittered cloud around the MAP).  MALA and HMC call the
+          log posterior's value and gradient at every step, so on a
+          float32 card GP each launches the gradient tile.
+        - ``step_size``: the initial step size of 'mala' (default
+          2.4 / sqrt(hyp_N)) and 'hmc' (default 0.01), adapted during
+          burn-in; ``hmc_steps`` (10): the leapfrog steps of an HMC
+          proposal.
         - ``sampler_backend``: 'device' (default; the chain of
           ``inference/device_slice.py``, each density on the GP's
           device) or 'host' (the parity ``SliceSampler`` driven by
-          numpy's global stream).
+          numpy's global stream).  'mala', 'hmc' and 'eissample'
+          ignore it and ``n_chains``.
         - ``n_chains``: this many independent chains, run one after the
           other, with the cross-chain split R-hat;
           ``chain_start_jitter`` (0.1) overdisperses the starts of the
@@ -763,9 +772,12 @@ class GP:
 
         Returns (hyp array, optimize_result, sampling_result): the
         sampler's result dict (``samples`` before thinning, ``f_vals``,
-        ``log_priors``, ``exit_flag``, ``R``, ``eff_N``, ``n_evals``; on
-        the device backend also ``n_sweeps``, the sweeps run, per chain for
-        chains as ``n_evals``), None for a MAP fit.
+        ``log_priors``, ``exit_flag``, ``R``, ``eff_N``; for the slice
+        samplers ``n_evals``, and on the device backend also ``n_sweeps``,
+        the sweeps run, per chain for chains as ``n_evals``; for 'mala'
+        and 'hmc' ``accept_rate``), None for a MAP fit.  The kept samples
+        are every ``thin``-th of ``samples``, with ``thin`` as the sampler
+        scaled it.
         """
         if options is None:
             options = {}
@@ -820,8 +832,6 @@ class GP:
                 "mala", "hmc",
             ):
                 raise ValueError("Unknown sampler!")
-            if sampler_name in _sampling.LATER:
-                raise NotImplementedError(_sampling.LATER[sampler_name])
 
         self.fit_timings = {}
         _t_start = time.perf_counter()
@@ -944,7 +954,7 @@ class GP:
             )
             return hyp_start, optimize_result, None
 
-        ## Slice sampling of the hyperposterior (inference/sampling.py).
+        ## Sampling of the hyperposterior (inference/sampling.py).
         if widths is None:
             widths = widths_default
         else:

@@ -25,9 +25,16 @@ tree (:meth:`TorchStream.permutation` at each sweep, then per coordinate
 :meth:`TorchStream.coordinate` giving the level uniform floored at
 ``tiny``, the bracket position and one uniform per proposal; per
 random-direction move :meth:`TorchStream.direction`; :meth:`split` for
-chains).  :func:`make_stream` builds the default one from an integer
-seed; a test replaces it with a replay of the JAX key tree, which makes
-the port's chains equal the JAX package's proposal by proposal.
+chains).  The other chains of the port draw from the same stream object:
+a MALA step's normal and acceptance uniform
+(:meth:`TorchStream.langevin`), an HMC iteration's momentum, step jitter
+and acceptance uniform (:meth:`TorchStream.hamiltonian`), and the
+ensemble's fill, iterations and half moves (:meth:`TorchStream.fill`,
+:meth:`TorchStream.ensemble_iteration`, :meth:`TorchStream.half_move`,
+whose walker moves are those of a coordinate).  :func:`make_stream`
+builds the default one from an integer seed; a test replaces it with a
+replay of the JAX key tree, which makes the port's chains equal the JAX
+package's proposal by proposal.
 
 ``n_evals`` counts every call of ``log_f`` (the initial density, each
 step-out probe and each shrinkage proposal that lies in bounds): the
@@ -79,9 +86,9 @@ _MAX_STEP_OUT = 1024
 class TorchStream:
     """The default random stream of a chain: draws from a CPU
     ``torch.Generator`` seeded by an integer.  The methods follow the
-    JAX key tree of a chain (see the module docstring); a coordinate or
-    direction move draws from the same generator, so this object is its
-    own move stream."""
+    JAX key tree of a chain (see the module docstring); a coordinate,
+    direction, half-ensemble or walker move draws from the same
+    generator, so this object is its own move stream."""
 
     def __init__(self, seed: int):
         self.gen = torch.Generator().manual_seed(int(seed))
@@ -118,6 +125,37 @@ class TorchStream:
         """One independent stream per chain."""
         seeds = torch.randint(0, 2**62, (B,), generator=self.gen)
         return [TorchStream(int(s)) for s in seeds]
+
+    def _normal(self, shape) -> np.ndarray:
+        return torch.randn(shape, generator=self.gen, dtype=torch.float64).numpy()
+
+    def langevin(self, D: int):
+        """A MALA step's draws: (the proposal's standard normal (D,), the
+        acceptance uniform floored at the smallest normal)."""
+        return self._normal((D,)), self.level()
+
+    def hamiltonian(self, D: int):
+        """An HMC iteration's draws: (the momentum's standard normal (D,),
+        the step jitter in [0.9, 1.1), the acceptance uniform floored at
+        the smallest normal)."""
+        return self._normal((D,)), 0.9 + 0.2 * self._uniform(), self.level()
+
+    def fill(self, need: int, D: int) -> np.ndarray:
+        """Standard normals (need, D) that jitter an ensemble's missing
+        walkers (drawn for need = 0 too, which uses none of it)."""
+        return self._normal((need, D))
+
+    def ensemble_iteration(self):
+        """The streams of an ensemble iteration's two half moves."""
+        return self, self
+
+    def half_move(self, n: int, H: int):
+        """A half move of n walkers against H frozen ones: (first frozen
+        walker (n,) in [0, H), offset to the second (n,) in [1, H), the
+        move stream of each walker)."""
+        i1 = torch.randint(0, H, (n,), generator=self.gen).numpy()
+        off = torch.randint(1, H, (n,), generator=self.gen).numpy()
+        return i1, off, [self] * n
 
 
 def make_stream(seed: int):

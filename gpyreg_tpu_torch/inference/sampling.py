@@ -6,7 +6,9 @@ Port of ``gpyreg_tpu/inference/sampling.py``: ``release_posterior_factors``
 sample), ``store_warm_state`` (:140-157), ``slicelite_ess`` (:160-217),
 ``slicelite_warm_refit`` (:220-312), ``run_sampling`` (:315-525) for the
 samplers "slicesample", "covsample" and "slicelite" on the device and
-host backends, and ``_run_chain_parallel`` (:528-681) with the
+host backends and the gradient samplers "mala" and "hmc" and the
+ensemble sampler "eissample" (:356-365, :396-477; ``mala.py``, ``hmc.py``,
+``ensemble_slice.py``), and ``_run_chain_parallel`` (:528-681) with the
 cross-chain split R-hat and its exit flags.  Every function takes the GP
 first: these are ``fit``'s phases, not standalone API.  Reference
 semantics: gaussian_process.py:1232-1305 (sampling phase),
@@ -17,9 +19,10 @@ Where the JAX package draws a random key from
 ``np.random.randint(0, 2**31 - 1)`` (:245, :489-491, :538), the port
 draws the same integer from numpy's global stream, in the same order, and
 seeds its chain's stream with it (``device_slice.make_stream``), so
-numpy's state after a fit is the same in both packages.  The chain
-density is ``log_post_chain_raw``, one call a proposal on the GP's
-device.
+numpy's state after a fit is the same in both packages.  The slice and
+ensemble chains' density is ``log_post_chain_raw``, one call a proposal
+on the GP's device; MALA and HMC call ``log_post_raw``'s value and
+gradient, one call a proposal or leapfrog point.
 
 Left out, with the JAX package's lines:
 
@@ -33,9 +36,8 @@ Left out, with the JAX package's lines:
   carries) is moot for the same reason;
 - ``ensemble_slice._log_prior_batch_fn`` (:132-137): the port evaluates
   one prior a sample;
-- until their slice (``inference/mala.py``, ``hmc.py``,
-  ``ensemble_slice.py``): the samplers "mala", "hmc" and "eissample"
-  (:356-477), which raise ``NotImplementedError`` (:data:`LATER`);
+- ``map_optimize.chain_segment_plan`` of the gradient samplers' branches
+  (:417-419, :444-449, :471-476): it sizes the TPU-only segmented chains;
 - the compile log and ``trace_dir`` of the warm refit (:307-311).
 
 A fault of the JAX package that the port does not copy: its host backend
@@ -50,16 +52,9 @@ import numpy as np
 
 from ..slice_sample import SliceSampler, effective_n, gelman_rubin
 from . import device_slice as _device_slice
-
-# The samplers of a later slice, and the message fit raises for them.
-LATER = {
-    name: (
-        f"sampler {name!r} is not ported yet: it arrives with the "
-        "gradient samplers' slice (inference/mala.py, inference/hmc.py, "
-        "inference/ensemble_slice.py)."
-    )
-    for name in ("mala", "hmc", "eissample")
-}
+from . import ensemble_slice as _ensemble_slice
+from . import hmc as _hmc
+from . import mala as _mala
 
 
 def _new_stream():
@@ -240,11 +235,14 @@ def run_sampling(
     """The sampling phase of ``GP.fit`` (reference
     gaussian_process.py:1232-1305 plus the oracle's sampler menu):
     dispatches on sampler and backend and returns ``(sampling_result,
-    thin)``.
+    thin)``: thin comes back because MALA scales it by the number of
+    hyperparameters (gplite_train.m:413, :424, :431).  "mala", "hmc" and
+    "eissample" take their branch whatever ``sampler_backend`` and
+    ``n_chains`` say.
 
     ``cand``/``cand_vals`` are the MAP phase's candidate pool (values may
     be None, evaluated lazily), used only for the non-finite-start
-    fallback.  ``fit`` has already refused the samplers of :data:`LATER`.
+    fallback.
     """
     # Release the previous fit's factors (fit() has already validated the
     # sampler name: a bad 'sampler' must not leave a usable GP without
@@ -255,6 +253,15 @@ def run_sampling(
     # single walker: one random-direction slice move per iteration
     # instead of a full coordinate sweep (device backend only).
     slice_move = "rd" if sampler_name == "covsample" else "cw"
+    if sampler_name == "mala":
+        # MALA moves all dimensions at once: the gplite driver scales the
+        # kept count, the burn-in and the thinning by the number of
+        # hyperparameters, to keep the exploration per dimension
+        # comparable to the coordinate-wise slice sampler.
+        hyp_N = int(np.size(LB))
+        thin = thin * hyp_N
+        eff_s_N = s_N * thin
+        burn_in = burn_in * hyp_N
 
     # Robustness guard: a float32 MAP point can sit where the objective is
     # borderline non-finite (Cholesky retry exhaustion); the samplers need
@@ -283,7 +290,12 @@ def run_sampling(
 
     backend = options.get("sampler_backend", "device")
     width_base = options.get("sample_width_base", True)
-    if backend == "device" and int(options.get("n_chains", 1)) > 1:
+    if sampler_name in ("mala", "hmc", "eissample"):
+        sampling_result = _run_mala_hmc_ensemble(
+            gp, sampler_name, options, eff_s_N, burn_in, widths, hyp_start,
+            LB, UB,
+        )
+    elif backend == "device" and int(options.get("n_chains", 1)) > 1:
         sampling_result = _run_chain_parallel(
             gp, options, s_N, eff_s_N, burn_in, widths, hyp_start, LB, UB,
             slice_move,
@@ -322,6 +334,42 @@ def run_sampling(
         sampling_result = slicer.sample(eff_s_N, burn=burn_in)
         sampling_result["n_evals"] = slicer.func_count
     return sampling_result, thin
+
+
+def _run_mala_hmc_ensemble(gp, sampler_name, options, eff_s_N, burn_in,
+                           widths, hyp_start, LB, UB):
+    """The MALA, HMC and ensemble slice chains (gplite_train.m:409-447 and
+    the oracle's ensemble sampler): ``eff_s_N`` samples after ``burn_in``
+    steps or iterations from the MAP point (the ensemble's walkers start
+    from a jittered cloud around it)."""
+    fns, obj_args = gp._obj_args()
+    common = dict(
+        n_samples=eff_s_N,
+        widths=widths,
+        LB=LB,
+        UB=UB,
+        burn=burn_in,
+        f_args=obj_args,
+        log_prior=None if gp.no_prior else fns["log_prior_raw"],
+        diagnostics=options.get("sampler_diagnostics", True),
+    )
+    stream = _new_stream()
+    if sampler_name == "mala":
+        result, _ = _mala.sample(
+            fns["log_post_raw"], hyp_start, stream,
+            step_size=options.get("step_size", None), **common,
+        )
+    elif sampler_name == "hmc":
+        result, _ = _hmc.sample(
+            fns["log_post_raw"], hyp_start, stream,
+            step_size=options.get("step_size", None),
+            n_leapfrog=int(options.get("hmc_steps", 10)), **common,
+        )
+    else:
+        result, _ = _ensemble_slice.sample(
+            fns["log_post_chain_raw"], hyp_start, stream, **common,
+        )
+    return result
 
 
 def _run_chain_parallel(gp, options, s_N, eff_s_N, burn_in, widths,

@@ -419,6 +419,61 @@ def test_sampling_fit_on_card_runs_through_the_kernel_tile(cuda, monkeypatch):
     assert all(bool(torch.all(torch.isfinite(p.alpha))) for p in g.posteriors)
 
 
+@pytest.mark.parametrize("sampler", ["mala", "hmc"])
+def test_gradient_sampler_fit_on_card_launches_the_gradient_tile(cuda, monkeypatch,
+                                                                 sampler):
+    """A float32 ``GP.fit`` with the MALA or HMC sampler on the card
+    (N = 512, a short chain): every value-and-gradient call of the chain
+    launches the kernel tile and then the gradient tile once, on the TMA
+    paths (the Cholesky's jitter retries refactor without a launch), and
+    each kept sample's f_vals + log_priors is its log posterior recomputed
+    on the card within 1e-5 relative."""
+    import gpyreg_tpu_torch as gt
+    from gpyreg_tpu_torch.inference import hmc, mala
+
+    module = mala if sampler == "mala" else hmc
+    run = module.sample
+    calls, window = [], {}
+
+    def counted(log_f, *args, **kw):
+        def f(x, *a):
+            calls.append(1)
+            return log_f(x, *a)
+
+        TK.reset_launches()
+        out = run(f, *args, **kw)
+        torch.cuda.synchronize()
+        window.update(TK.LAUNCHES)
+        return out
+
+    monkeypatch.setattr(module, "sample", counted)
+    rng = np.random.default_rng(5)
+    N, D = 512, 3
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.3 * rng.normal(size=(N, 1))
+    g = gt.GP(D, gt.covariance_functions.SquaredExponential(),
+              gt.mean_functions.ConstantMean(),
+              gt.noise_functions.GaussianNoise(constant_add=True), dtype=np.float32)
+    np.random.seed(2)
+    hyp, res, sr = g.fit(X, y, options={"sampler": sampler, "n_samples": 4,
+                                        "thin": 1, "burn": 4, "hmc_steps": 3,
+                                        "init_N": 32, "opts_N": 1})
+    # MALA: (4 + 4) x (D + 3) steps; HMC: 8 iterations x 3 leapfrog points.
+    steps = 8 * (D + 3) if sampler == "mala" else 8 * 3
+    assert hyp.shape == (4, D + 3) and res is not None
+    assert np.all(hyp >= g.lower_bounds) and np.all(hyp <= g.upper_bounds)
+    assert 0.0 <= sr["accept_rate"] <= 1.0
+    assert 1 < len(calls) <= 1 + steps
+    assert window["vjp"] == len(calls) and window["self"] == len(calls)
+    assert window["cross"] == 0
+    assert not any(v for k, v in window.items() if k.endswith("_unaligned"))
+    fns, args = g._obj_args()
+    for s, f, lp in zip(sr["samples"], sr["f_vals"][:, 0], sr["log_priors"]):
+        ref = float(fns["log_post_chain_raw"](s, *args))
+        assert abs(f + lp - ref) <= 1e-5 * max(1.0, abs(ref))
+    assert all(bool(torch.all(torch.isfinite(p.alpha))) for p in g.posteriors)
+
+
 def test_gp_sample_on_card_launches_one_cross_column_per_posterior(cuda):
     """``GP.sample`` on a float32 card GP: each density builds K(X, x) of
     each posterior with the kernel tile on one column, which is the path

@@ -221,9 +221,6 @@ def test_float32_fit_on_the_cpu_respects_the_noise_floor():
 
 
 LEFT_OUT = {
-    "eissample": ({"n_samples": 4, "sampler": "eissample"}, "gradient samplers"),
-    "mala": ({"n_samples": 4, "sampler": "mala"}, "gradient samplers"),
-    "hmc": ({"n_samples": 4, "sampler": "hmc"}, "gradient samplers"),
     "cg": ({"n_samples": 0, "method": "cg"}, "matrix-free"),
     "auto_above_threshold": ({"n_samples": 0, "method": "auto",
                               "cg_threshold_n": 10}, "matrix-free"),

@@ -49,7 +49,8 @@ def test_import_leaves_jax_out():
     assert proc.returncode == 0, proc.stderr
     assert len(modules) >= 14
     for name in ("inference.map_optimize", "inference.fit_phases",
-                 "inference.device_slice", "inference.sampling", "slice_sample"):
+                 "inference.device_slice", "inference.sampling", "slice_sample",
+                 "inference.mala", "inference.hmc", "inference.ensemble_slice"):
         assert "gpyreg_tpu_torch." + name in modules
 
 
@@ -59,7 +60,8 @@ def test_inference_subpackage_alone_leaves_jax_out():
     code = (
         "import sys\n"
         "import gpyreg_tpu_torch.inference\n"
-        "from gpyreg_tpu_torch.inference import (device_slice, fit_phases,\n"
+        "from gpyreg_tpu_torch.inference import (device_slice, ensemble_slice,\n"
+        "                                        fit_phases, hmc, mala,\n"
         "                                        map_optimize, sampling)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'gpyreg_tpu'))\n"

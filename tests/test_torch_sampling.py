@@ -10,7 +10,9 @@ samples, ``f_vals``, ``log_priors``, R and eff_N agree to 1e-8
 relative, the exit flags are equal, numpy's global stream is left in the
 same state, and ``predict`` afterwards agrees to 1e-10 (mean) and 1e-7
 (variance).  Covered: slicesample, covsample, two chains with
-``chain_thin`` 2, the host backend (numpy's stream, no replay), and
+``chain_thin`` 2, the host backend (numpy's stream, no replay), the
+gradient samplers mala (thin and burn-in scaled by the number of
+hyperparameters) and hmc, the ensemble sampler eissample, and
 slicelite twice (the warm-refit shortcut, explicit ``hyp0_logp``, the
 ``log_P`` alias, a low ESS falling back to the full pipeline, a length
 mismatch raising).  Each JAX fit runs once, in a module-scoped fixture.
@@ -35,6 +37,9 @@ CASES = {
     "covsample": {"sampler": "covsample"},
     "chains": {"n_chains": 2, "chain_thin": 2},
     "host": {"sampler_backend": "host"},
+    "mala": {"sampler": "mala"},
+    "hmc": {"sampler": "hmc"},
+    "eissample": {"sampler": "eissample"},
 }
 SIDES = (("jax", gj, {}), ("torch", gt, {"device": "cpu"}))
 
@@ -130,7 +135,9 @@ def _same_fit(t, j):
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_fit_samples_equal_the_jax_samples(name, fits):
     g, hyp, sr = _same_fit(fits[name, "torch"], fits[name, "jax"])
-    thin = BASE["thin"]
+    # MALA scales thin by the number of hyperparameters.
+    thin = BASE["thin"] * (D + 3 if name == "mala" else 1)
+    assert sr["samples"].shape == (BASE["n_samples"] * thin, D + 3)
     assert hyp.shape == (BASE["n_samples"], D + 3)
     assert np.array_equal(hyp, sr["samples"][thin - 1 :: thin])
     assert np.all(hyp >= g.lower_bounds) and np.all(hyp <= g.upper_bounds)
@@ -215,14 +222,15 @@ def test_host_backend_honours_sample_width_base():
 
 
 def test_later_samplers_raise_before_releasing_the_factors():
-    """``fit`` refuses the samplers of a later slice before it releases
-    the previous posterior factors or changes any other state."""
+    """``fit`` refuses an unknown sampler name before it releases the
+    previous posterior factors or changes any other state (the JAX
+    package refuses it after the MAP)."""
     X, y = _data()
     g = _make(gt, device="cpu")
     _fit(g, X, y, {"n_samples": 0, "init_N": 8, "opts_N": 1})
     hyp, timings = g.get_hyperparameters(as_array=True), dict(g.fit_timings)
-    for name in ("mala", "hmc", "eissample"):
-        with pytest.raises(NotImplementedError, match="gradient samplers"):
+    for name in ("gibbs", "nuts", "Mala"):
+        with pytest.raises(ValueError, match="Unknown sampler"):
             g.fit(X[:-1], y[:-1], options={"sampler": name, "n_samples": 2})
         assert g.posteriors[0].alpha is not None and g.X.shape == X.shape
         assert np.array_equal(g.get_hyperparameters(as_array=True), hyp)

@@ -8,7 +8,13 @@ coordinate ``key, k_dim = split(key)``, then ``k_level, k_pos, k_prop =
 split(k_dim, 3)`` and per proposal ``k_prop, ku = split(k_prop)``
 (``_dim_body_factory``); per random-direction move ``key, k_dir, k_level,
 k_pos, k_prop = split(key, 5)`` (``_rd_sweep``); per chain
-``split(key, B)`` (``sample_chains``).  ``patch_streams`` makes the
+``split(key, B)`` (``sample_chains``).  The gradient samplers' splits
+are those of ``gpyreg_tpu/inference/mala.py`` (per step ``key, k_prop,
+k_acc = split(key, 3)``), ``hmc.py`` (per iteration ``key, k_mom, k_jit,
+k_acc = split(key, 4)``) and ``ensemble_slice.py`` (``key, k_fill =
+split(key)`` before the chain; per iteration ``key, kA, kB = split(key,
+3)``; per half ``split(k, n + 1)``, the pick key first, and the walker
+moves of a slice step).  ``patch_streams`` makes the
 port's ``make_stream(seed)`` return ``replay(seed)``, the stream of
 ``jax.random.key(seed)``, which is the key the JAX package builds from
 the same integer.
@@ -58,6 +64,38 @@ class JaxReplay:
 
     def split(self, B):
         return [JaxReplay(k) for k in jax.random.split(self.key, B)]
+
+    def langevin(self, D):
+        self.key, k_prop, k_acc = jax.random.split(self.key, 3)
+        xi = np.asarray(jax.random.normal(k_prop, (D,), dtype=jnp.float64))
+        return xi, float(jax.random.uniform(k_acc, minval=_TINY))
+
+    def hamiltonian(self, D):
+        self.key, k_mom, k_jit, k_acc = jax.random.split(self.key, 4)
+        jit = float(jax.random.uniform(k_jit, minval=0.9, maxval=1.1))
+        p0 = np.asarray(jax.random.normal(k_mom, (D,), dtype=jnp.float64))
+        return p0, jit, float(jax.random.uniform(k_acc, minval=_TINY))
+
+    def fill(self, need, D):
+        self.key, k_fill = jax.random.split(self.key)
+        return np.asarray(jax.random.normal(k_fill, (need, D)))
+
+    def ensemble_iteration(self):
+        self.key, kA, kB = jax.random.split(self.key, 3)
+        return _Half(kA), _Half(kB)
+
+
+class _Half:
+    def __init__(self, key):
+        self.key = key
+
+    def half_move(self, n, H):
+        keys = jax.random.split(self.key, n + 1)
+        k_pick = keys[0]
+        i1 = np.asarray(jax.random.randint(k_pick, (n,), 0, H))
+        off = np.asarray(
+            jax.random.randint(jax.random.fold_in(k_pick, 1), (n,), 1, H))
+        return i1, off, [_Move(*jax.random.split(k, 3)) for k in keys[1:]]
 
 
 def replay(seed):

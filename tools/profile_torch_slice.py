@@ -14,7 +14,10 @@ at its defaults, N = 4096, D = 8, float32, a new GP for each fit, span
 ``fit_4096``) and its ``fit_sample_bench`` workload (``GP.fit`` with
 hyperposterior sampling at its defaults on the same data, span
 ``fit_sample_4096``, with the chain's own span ``fit_sample_4096_chain``
-around ``inference.sampling.run_sampling``), and then:
+around ``inference.sampling.run_sampling``) and its ``fit_mala_bench`` and
+``fit_hmc_bench`` workloads (the MALA and HMC fits on the same data,
+spans ``fit_mala_4096`` and ``fit_hmc_4096`` with their chains' spans
+``fit_mala_4096_chain`` and ``fit_hmc_4096_chain``), and then:
 
 1. warms up with one ``update``, one ``predict`` and one batched NLML
    value and gradient (``get_fns(...)["nlz_grad"]``) of each GP, and one
@@ -24,9 +27,9 @@ around ``inference.sampling.run_sampling``), and then:
    under ``torch.profiler`` (CPU and CUDA activities), each inside a
    ``record_function`` span that ends with a synchronize, and exports
    the Chrome trace to ``--trace``; then each fit in a profiler run
-   and a trace file of its own (``--trace`` with ``.fit_4096.json`` or
-   ``.fit_sample_4096.json`` appended, removed once it is read: it holds
-   every kernel of 1024 design rows, and of the chain).
+   and a trace file of its own (``--trace`` with ``.<span>.json``
+   appended, removed once it is read: it holds every kernel of 1024
+   design rows, and of the chain).
    From the trace's events it reports, for each span: its wall time; the
    device busy time, the union of the intervals of the ``kernel``,
    ``gpu_memcpy`` and ``gpu_memset`` events inside the span (device
@@ -35,8 +38,8 @@ around ``inference.sampling.run_sampling``), and then:
    time of each kernel name (the largest 12), as a share of the wall;
 3. runs each span three times more without the profiler, on the host
    clock and ending with a synchronize, and reports the median wall and
-   the idle share 1 - busy / that wall (for the chain's span, the
-   median of the fits' ``fit_timings["sample_s"]``).  The profiler's CPU
+   the idle share 1 - busy / that wall (for a chain's span, the
+   median of its fits' ``fit_timings["sample_s"]``).  The profiler's CPU
    tracing stretches the host's share of a span whose wall the host
    sets; this share leaves that cost out (device busy time is taken from
    step 2);
@@ -158,8 +161,9 @@ def main():
     import numpy as np
 
     from gpyreg_tpu_torch import gp as gp_mod
-    from chip_smoke import (D, D_TR, FIT_BENCH, FIT_SAMPLE_BENCH, M_TEST, N,
-                            N_TR, SEED, _data, _fit_data, _se_gp, _train_data)
+    from chip_smoke import (D, D_TR, FIT_BENCH, FIT_HMC_BENCH, FIT_MALA_BENCH,
+                            FIT_SAMPLE_BENCH, M_TEST, N, N_TR, SEED, _data,
+                            _fit_data, _se_gp, _train_data)
     from gpyreg_tpu_torch.inference import sampling
 
     smi = subprocess.run(
@@ -191,27 +195,35 @@ def main():
         g.fit(fit_X, fit_y, options=dict(options))
         return g
 
-    # The sampled fit takes fit_bench's data; its chain gets a span of its
-    # own (record_function costs nothing while no profiler runs).
-    _, samp_n, samp_d, samp_options = FIT_SAMPLE_BENCH
-    if (samp_n, samp_d) != (fit_n, fit_d):
-        raise SystemExit("fit_sample_bench and fit_bench differ in size")
-    samp_span = f"fit_sample_{samp_n}"
+    # The sampled fits take fit_bench's data; each one's chain gets a span
+    # of its own (record_function costs nothing while no profiler runs).
+    sampled = {}
+    for spec, prefix in ((FIT_SAMPLE_BENCH, "fit_sample"),
+                         (FIT_MALA_BENCH, "fit_mala"),
+                         (FIT_HMC_BENCH, "fit_hmc")):
+        _, samp_n, samp_d, samp_options = spec
+        if (samp_n, samp_d) != (fit_n, fit_d):
+            raise SystemExit(f"{spec[0]} and fit_bench differ in size")
+        sampled[f"{prefix}_{samp_n}"] = samp_options
     run_sampling = sampling.run_sampling
+    chain_of = []  # the span of the fit that runs
 
     def chain_span(*args, **kw):
-        with torch.profiler.record_function(samp_span + "_chain"):
+        with torch.profiler.record_function(chain_of[-1] + "_chain"):
             out = run_sampling(*args, **kw)
             torch.cuda.synchronize()
         return out
 
     sampling.run_sampling = chain_span
-    sample_s = []
+    sample_s = {name: [] for name in sampled}
 
-    def fit_sample():
-        g = fit(samp_options)
-        sample_s.append(g.fit_timings["sample_s"] * 1e3)
-        return g
+    def fit_sample(name):
+        def run():
+            chain_of.append(name)
+            g = fit(sampled[name])
+            sample_s[name].append(g.fit_timings["sample_s"] * 1e3)
+            return g
+        return run
 
     nlml_grad(gp, hyp)
     nlml_grad(gp_tr, hyps_tr)
@@ -230,11 +242,12 @@ def main():
         ("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
         ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
     )
-    fit_spans = ((f"fit_{fit_n}", fit), (samp_span, fit_sample))
+    fit_spans = ((f"fit_{fit_n}", fit),) + tuple(
+        (name, fit_sample(name)) for name in sampled)
     host, spans = {}, {}
     runs = [(args.trace, span_fns, ())] + [
         (f"{args.trace}.{name}.json", ((name, fn),),
-         (samp_span + "_chain",) if name == samp_span else ())
+         (name + "_chain",) if name in sampled else ())
         for name, fn in fit_spans
     ]
     for trace, fns, inner in runs:
@@ -250,7 +263,8 @@ def main():
         spans.update(_spans(trace, tuple(name for name, _ in fns) + inner))
         if trace != args.trace:
             os.remove(trace)
-    host[samp_span + "_chain"] = sample_s.pop()
+    for name in sampled:
+        host[name + "_chain"] = sample_s[name].pop()
     for name, fn in span_fns + fit_spans:
         walls = []
         for _ in range(3):
@@ -259,11 +273,11 @@ def main():
             fn()
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
-        if name == samp_span:
+        if name in sampled:
             r = spans[name + "_chain"]
             r["host_wall_ms"] = host[name + "_chain"]
-            r["unprofiled_wall_ms"] = sorted(sample_s)[1]
-            r["unprofiled_walls_ms"] = list(sample_s)
+            r["unprofiled_wall_ms"] = sorted(sample_s[name])[1]
+            r["unprofiled_walls_ms"] = list(sample_s[name])
             r["device_idle_share_unprofiled"] = (
                 1.0 - r["device_busy_ms"] / r["unprofiled_wall_ms"]
             )
