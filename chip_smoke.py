@@ -25,7 +25,12 @@ Phases, each of which raises on failure:
    tile); then the path without TMA (M % 4 != 0) at 4095 x 4095 self and
    4096 x 4095 cross, D = 8, and at the one-column cross-covariances of
    ``GP.sample``: 16384 x 1, D = 10 (config 5) and 4096 x 1, D = 8
-   (fit_sample_bench).  Every self build is
+   (fit_sample_bench); and the shapes of phase 9a: the self-covariances
+   1024 x 1024 and 64 x 64 and the crosses 16388 x 1024, 16388 x 256 and
+   16388 x 64, D = 10 (the TMA paths), and the one-column crosses of the
+   4 rank-1 updates, (16384 + k) x 1 for k = 0..3 against the k-th new
+   row, D = 10 (the path without TMA; k > 0 leaves a ragged last row
+   tile).  Every self build is
    bitwise symmetric with its diagonal
    exactly sf2 * profile(0); each launch is counted on its path's key;
    sf2 and alpha are device tensors, as the main paths pass them, and at
@@ -60,6 +65,36 @@ Phases, each of which raises on failure:
    then 10 iterations of L-BFGS-B on the NLML from lane 0;
 9. the training slice at config 5's size: the serving GP's 8 vectors,
    one batched NLML value and gradient at N = 16384, D = 10;
+9a. the rest of serving on the config-5 serving GP (``serving_rest``):
+    (a) 4 single-point ``update`` calls with rows of ``_data``'s function
+    (N = 16384 to 16388), each timed, each exactly one 16384+k x 1 cross
+    of the kernel tile a posterior (``cross_unaligned``) and no self build
+    (no rebuild), with no sample falling back to a rebuild; then
+    ``predict`` at 256 points against a float32 full rebuild of the same
+    16388 rows and hyperparameters (timed), within max(1e-4, 10 kappa
+    eps32) relative, kappa bounded as in phase 6, and where the updates
+    matter: ``predict`` at the 4 new rows within the same rule, and each
+    sample's ``alpha`` and the last 4 columns of its factor within the
+    rule at that sample's kappa, relative to the rebuild's largest entry
+    (printed beside how far the updates moved the mean at the new
+    rows); (b) ``predict_full`` at
+    1024 points: one 1024 x 1024 self and one 16388 x 1024 cross a
+    posterior, the covariance exactly symmetric, its diagonal
+    ``_group_predict``'s raw variance within 1e-4 relative to the prior
+    variance, and 2 samples at 256 of the points against a float64 build
+    on the card as in phase 6; (c) ``quad`` over 64 measures (``mu`` from
+    the test points, ``sigma`` 0.5, ``compute_var``, ``separate_samples``),
+    2 samples against the float64 build within the kappa rule; (d) one
+    ``random_function`` draw at 1024 points (timed, with the route of its
+    robust Cholesky), then 256 draws at 64 points under
+    ``np.random.seed``, whose mean lies within 5 standard errors
+    sqrt(s2/256) of ``predict``'s mixture mean at every point; (e)
+    ``predict_quantile`` at 256 points, q = (0.1, 0.5, 0.9): finite and
+    increasing in q; (f) ``fmin`` with 3 starts (timed, with its objective
+    evaluations and its launches, none: the objective takes the plain
+    composition): x in fmin's box and fval at most the mixture mean at the
+    best training row + 1e-6 max(1, |fval|).  ``plot`` is not called (the
+    card's machine has no matplotlib);
 10. gradient accuracy: at N = 2048, D = 8, 8 lanes, the float32 card
     gradient against the port's float64 gradient on the CPU; at N = 4096,
     2 lanes against a float64 build on the card; per entry
@@ -197,6 +232,10 @@ FIT_MALA_CONFIG5 = ("fit_mala_config5", N, D,
                      "n_samples": 8, "thin": 1, "burn": 2})
 REFIT_ROWS = 4
 GP_SAMPLE_N = (100, 50)
+# Phase 9a: single-point updates, then the test points of predict_full,
+# quad's measures, random_function's draws and predict_quantile's points.
+R1_ROWS = 4
+M_PF, M_QUAD, M_RF, N_RF, M_Q = 1024, 64, 64, 256, 256
 VJP_COVS = ("se", "m1", "m3", "m5", "rq", "se_iso", "m1_iso")
 # Kernel (direct differences) vs the plain norm-expansion version in
 # float32, the tolerance of tests/test_fused_kernel.py:46.
@@ -222,6 +261,14 @@ def _data(n, m, seed):
     hyp[:, D + 1] = np.log(0.1)
     hyp += 0.05 * rng.normal(size=hyp.shape)
     return X, y, xs, hyp
+
+
+def _new_rows(k, seed):
+    """k more rows of ``_data``'s function, from its generator."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(k, D))
+    return X, (np.sum(np.sin(X), axis=1, keepdims=True)
+               + 0.1 * rng.normal(size=(k, 1)))
 
 
 def _train_data(n, seed):
@@ -370,6 +417,10 @@ def phase_kernel_vs_plain(X, xs, X_tr):
 
     chunk, tail = _chunks()
     Xs = torch.as_tensor(X, dtype=torch.float32, device=DEV)
+    # Phase 9a's data: the serving rows and the 4 rows of its updates.
+    Xg = torch.cat([Xs, torch.as_tensor(_new_rows(R1_ROWS, SEED + 7)[0],
+                                        dtype=torch.float32, device=DEV)])
+    Zp = torch.as_tensor(xs[:M_PF], dtype=torch.float32, device=DEV)
     Zc = torch.as_tensor(xs[:chunk], dtype=torch.float32, device=DEV)
     Zt = torch.as_tensor(xs[-tail:], dtype=torch.float32, device=DEV)
     Xt = torch.as_tensor(X_tr, dtype=torch.float32, device=DEV)
@@ -398,6 +449,17 @@ def phase_kernel_vs_plain(X, xs, X_tr):
         ("cross_col", "cross_unaligned", (Xs, Zc[:1].contiguous(), False, 50)),
         ("cross_col_bench", "cross_unaligned",
          (Xt, Zu[:1].contiguous(), False, 50)),
+        # Phase 9a: predict_full and random_function at 1024 points, the
+        # draws at 64, predict and predict_quantile at 256.
+        ("self_pf", "self", (Zp, Zp, True, 20)),
+        ("cross_pf", "cross", (Xg, Zp, False, 10)),
+        ("self_64", "self", (Zp[:M_RF], Zp[:M_RF], True, 50)),
+        ("cross_64", "cross", (Xg, Zp[:M_RF], False, 20)),
+        ("cross_256", "cross", (Xg, Zp[:M_Q], False, 20)),
+        # The rank-1 updates: the rows so far against the next new row.
+        *((f"cross_r1_{k}", "cross_unaligned",
+           (Xg[: N + k], Xg[N + k : N + k + 1], False, 20))
+          for k in range(R1_ROWS)),
     ):
         for base in TK.PROFILES:
             K = _one_launch(TK, key, lambda: TK.kernel_cross(
@@ -562,6 +624,29 @@ def phase_slice(X, y, xs, hyp):
     return gp, launches
 
 
+def _kappa_bounds(X, hyps):
+    """For each ARD-SE row of ``hyps``, the bound (lambda_max(K) + sn2) /
+    sn2 on cond(K + sn2 I), lambda_max from 50 steps of power iteration
+    in float64 on the card."""
+    from gpyreg_tpu_torch.ops.kernels import kernel_matrix
+
+    Xd = torch.as_tensor(X, device=DEV)
+    n = Xd.shape[0]
+    out = []
+    for h in hyps:
+        K = kernel_matrix("se", torch.as_tensor(h[: D + 1]), Xd)
+        sn2 = float(np.exp(2 * h[D + 1]))
+        v = torch.ones(n, dtype=K.dtype, device=K.device) / np.sqrt(n)
+        for _ in range(50):
+            v = K @ v
+            v /= torch.linalg.norm(v)
+        lam_max = float(v @ (K @ v))
+        out.append((lam_max + sn2) / sn2)
+        del K
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_full_size_accuracy(gp32, X, y, xs, hyp):
     """The first S_FULL samples of the full-size float32 GP, at M_FULL test
     points spread over all chunks, against a float64 build of the same GP
@@ -571,7 +656,6 @@ def phase_full_size_accuracy(gp32, X, y, xs, hyp):
     sn2) / sn2 (K is positive semi-definite); lambda_max comes from power
     iteration in float64."""
     from gpyreg_tpu_torch.convert import gp_from_arrays
-    from gpyreg_tpu_torch.ops.kernels import kernel_matrix
 
     sub = xs[:: M_TEST // M_FULL][:M_FULL]
     meta = {"D": D, "cov_kind": "se", "mean_kind": "const",
@@ -582,19 +666,7 @@ def phase_full_size_accuracy(gp32, X, y, xs, hyp):
     mu32, s232 = gp32._group_predict(sub)
     mu32, s232 = mu32[:, :S_FULL], s232[:, :S_FULL]
 
-    Xd = torch.as_tensor(X, device=DEV)
-    kappa = 0.0
-    for s in range(S_FULL):
-        K = kernel_matrix("se", torch.as_tensor(hyp[s, : D + 1]), Xd)
-        sn2 = float(np.exp(2 * hyp[s, D + 1]))
-        v = torch.ones(N, dtype=K.dtype, device=K.device) / np.sqrt(N)
-        for _ in range(50):
-            v = K @ v
-            v /= torch.linalg.norm(v)
-        lam_max = float(v @ (K @ v))
-        kappa = max(kappa, (lam_max + sn2) / sn2)
-        del K
-    torch.cuda.empty_cache()
+    kappa = max(_kappa_bounds(X, hyp[:S_FULL]))
     rel = 10.0 * kappa * EPS32
     tol_mu = rel * max(1.0, float(np.max(np.abs(mu64))))
     tol_s2 = rel * float(np.exp(2 * hyp[:S_FULL, D].max()))
@@ -769,6 +841,241 @@ def phase_train_config5(gp, hyp):
     if launches != {**dict.fromkeys(TK.LAUNCHES, 0), "self": S, "vjp": S}:
         raise AssertionError(f"config-5 training launches {launches}")
     return {"secs_per_lane": secs / S, "peak": peak, "launches": launches}
+
+
+def _synced(fn):
+    """(fn(), its seconds, the launches it made), the counts set to 0
+    before and the card synchronised on both sides."""
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    torch.cuda.synchronize()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(TK.LAUNCHES)
+
+
+def _expect(what, launches, **want):
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    want = {**dict.fromkeys(TK.LAUNCHES, 0), **want}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def phase_serving_rest(gp, X, y, xs, hyp):
+    """Phase 9a on the config-5 serving GP, with the checks of the module
+    docstring.  Returns the launches of each call, for the kernels line."""
+    import warnings
+
+    import scipy.stats  # noqa: F401 (its first import is not the phase's)
+
+    from gpyreg_tpu_torch.convert import gp_from_arrays
+    from gpyreg_tpu_torch.inference import map_optimize as MO
+    from gpyreg_tpu_torch.ops import linalg as TL
+
+    t_phase = time.perf_counter()
+    out = {}
+    sf2_max = float(np.exp(2 * hyp[:, D].max()))
+    # (a) Single-point updates.
+    Xn, yn = _new_rows(R1_ROWS, SEED + 7)
+    mu_old, _ = gp.predict(Xn, separate_samples=True)
+    r1_ms, out["rank1"] = [], []
+    for k in range(R1_ROWS):
+        torch.cuda.reset_peak_memory_stats()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, secs, launches = _synced(
+                lambda: gp.update(X_new=Xn[k : k + 1], y_new=yn[k : k + 1]))
+        peak = torch.cuda.max_memory_allocated()
+        rebuilt = sum("Rank-one posterior update unstable" in str(w.message)
+                      for w in caught)
+        r1_ms.append(secs * 1e3)
+        out["rank1"].append(launches)
+        print(f"serving_rest rank-1 update {k + 1}: N {N + k} -> {N + k + 1}, "
+              f"{secs * 1e3:.3f} ms; unstable samples rebuilt {rebuilt}; peak "
+              f"device memory {peak / 2**30:.2f} GiB; launches {launches}")
+        _expect(f"rank-1 update {k + 1}", launches, cross_unaligned=S)
+        if rebuilt or gp.posteriors[0].L.shape != (N + k + 1, N + k + 1):
+            raise AssertionError(f"rank-1 update {k + 1}: {rebuilt} samples "
+                                 f"fell back to a rebuild")
+    X_all, y_all = np.concatenate([X, Xn]), np.concatenate([y, yn])
+    sub = xs[:M_Q]
+    (mu_r1, s2_r1), _, out["predict"] = _synced(
+        lambda: gp.predict(sub, separate_samples=True))
+    _expect(f"predict at {M_Q} points", out["predict"], cross=S)
+    gp_rb, rb_s, _ = _synced(lambda: gp_from_arrays(
+        _se_meta(D, "float32"), X_all, y_all, None, hyp, DEV))
+    mu_rb, s2_rb = gp_rb.predict(sub, separate_samples=True)
+    # Where the updates matter: the new rows themselves, each sample's
+    # alpha and the last R1_ROWS columns of its factor.
+    mu_r1n, s2_r1n = gp.predict(Xn, separate_samples=True)
+    mu_rbn, s2_rbn = gp_rb.predict(Xn, separate_samples=True)
+    fac = []
+    for p, q in zip(gp.posteriors, gp_rb.posteriors):
+        if p.L_chol != q.L_chol:
+            raise AssertionError("rank-1: a sample changed parametrization")
+        La, Lb = p.L[:, -R1_ROWS:], q.L[:, -R1_ROWS:]
+        fac.append(tuple(torch.max(t).item() for t in (
+            torch.abs(p.alpha - q.alpha), torch.abs(q.alpha),
+            torch.abs(La - Lb), torch.abs(Lb))))
+    del gp_rb, p, q, La, Lb
+    torch.cuda.empty_cache()
+    kappas = _kappa_bounds(X_all, hyp)
+    rel = max(1e-4, 10.0 * max(kappas) * EPS32)
+    err_mu = float(np.max(np.abs(mu_r1 - mu_rb)))
+    err_s2 = float(np.max(np.abs(s2_r1 - s2_rb)))
+    tol_mu = rel * max(1.0, float(np.max(np.abs(mu_rb))))
+    err_mun = float(np.max(np.abs(mu_r1n - mu_rbn)))
+    err_s2n = float(np.max(np.abs(s2_r1n - s2_rbn)))
+    tol_mun = rel * max(1.0, float(np.max(np.abs(mu_rbn))))
+    moved = float(np.max(np.abs(mu_old - mu_rbn)))
+    print(f"serving_rest rank-1 at the {R1_ROWS} new rows: max|dmu|="
+          f"{err_mun:.3e} (tol {tol_mun:.3e}), max|ds2|={err_s2n:.3e} (tol "
+          f"{rel * sf2_max:.3e}); the updates moved mu there by up to "
+          f"{moved:.3e}")
+    bad = not (err_mun < tol_mun and err_s2n < rel * sf2_max)
+    for s, (e_a, a_max, e_L, L_max) in enumerate(fac):
+        rel_s = max(1e-4, 10.0 * kappas[s] * EPS32)
+        print(f"  sample {s}: kappa(G) <= {kappas[s]:.1f}, tol {rel_s:.3e} "
+              f"relative; alpha max|d|={e_a:.3e} (max|alpha| {a_max:.3e}), "
+              f"last {R1_ROWS} columns of L max|d|={e_L:.3e} (max|L| "
+              f"{L_max:.3e})")
+        bad |= not (e_a < rel_s * max(1.0, a_max)
+                    and e_L < rel_s * max(1.0, L_max))
+    if bad:
+        raise AssertionError("rank-1 factors or the new rows' predictions "
+                             "disagree with the rebuild")
+    print(f"serving_rest rank-1: {R1_ROWS} updates, {np.mean(r1_ms):.3f} ms "
+          f"each (runs {r1_ms}) against a float32 full rebuild of the "
+          f"{N + R1_ROWS} rows in {rb_s:.3f} s; predict at {M_Q} points, "
+          f"{S} samples: max|dmu|={err_mu:.3e} (tol {tol_mu:.3e}), "
+          f"max|ds2|={err_s2:.3e} (tol {rel * sf2_max:.3e}); kappa(G) <= "
+          f"{max(kappas):.1f}, tol = max(1e-4, 10*kappa*eps32) relative")
+    if not (err_mu < tol_mu and err_s2 < rel * sf2_max):
+        raise AssertionError("rank-1 updates disagree with the rebuild")
+    out["rank1_ms"], out["rebuild_s"] = r1_ms, rb_s
+
+    # (b) predict_full at 1024 points.
+    xp = xs[:M_PF]
+    (mu_pf, cov_pf), pf_s, out["predict_full"] = _synced(
+        lambda: gp.predict_full(xp))
+    _expect("predict_full", out["predict_full"], self=S, cross=S)
+    mu_g, s2_g = gp._group_predict(xp)
+    diag = np.einsum("iis->is", cov_pf)
+    err_d = float(np.max(np.abs(diag - s2_g))) / sf2_max
+    err_m = float(np.max(np.abs(mu_pf - mu_g)))
+    symmetric = bool(np.array_equal(cov_pf, cov_pf.transpose(1, 0, 2)))
+    sub = xp[:: M_PF // M_FULL][:M_FULL]
+    gp64 = gp_from_arrays(_se_meta(D, "float64"), X_all, y_all, None,
+                          hyp[:S_FULL], DEV)
+    mu64, cov64 = gp64.predict_full(sub)
+    mu32, cov32 = gp.predict_full(sub)
+    rel2 = 10.0 * max(kappas[:S_FULL]) * EPS32
+    sf2_2 = float(np.exp(2 * hyp[:S_FULL, D].max()))
+    e_mu = float(np.max(np.abs(mu32[:, :S_FULL] - mu64)))
+    e_cov = float(np.max(np.abs(cov32[:, :, :S_FULL] - cov64)))
+    t_mu = rel2 * max(1.0, float(np.max(np.abs(mu64))))
+    print(f"serving_rest predict_full: M={M_PF} {pf_s:.3f} s; launches "
+          f"{out['predict_full']}; symmetric {symmetric}; diagonal vs "
+          f"_group_predict's raw variance max|d|/sf2={err_d:.3e} (tol 1e-4), "
+          f"mean max|d|={err_m:.3e}; {S_FULL} samples at {M_FULL} points vs "
+          f"float64 on the card: max|dmu|={e_mu:.3e} (tol {t_mu:.3e}), "
+          f"max|dcov|={e_cov:.3e} (tol {rel2 * sf2_2:.3e})")
+    if not (symmetric and err_d <= 1e-4 and err_m <= 1e-4 * max(
+            1.0, float(np.max(np.abs(mu_g))))):
+        raise AssertionError("predict_full disagrees with _group_predict")
+    if not (e_mu < t_mu and e_cov < rel2 * sf2_2):
+        raise AssertionError("predict_full disagrees with float64")
+    out["predict_full_s"] = pf_s
+
+    # (c) quad over 64 measures.
+    mq = xs[:M_QUAD]
+    (F, J), q_s, launches = _synced(
+        lambda: gp.quad(mq, 0.5, compute_var=True, separate_samples=True))
+    _expect("quad", launches)
+    F64, J64 = gp64.quad(mq, 0.5, compute_var=True, separate_samples=True)
+    del gp64
+    torch.cuda.empty_cache()
+    e_F = float(np.max(np.abs(F[:, :S_FULL] - F64)))
+    e_J = float(np.max(np.abs(J[:, :S_FULL] - J64)))
+    t_F = rel2 * max(1.0, float(np.max(np.abs(F64))))
+    print(f"serving_rest quad: {M_QUAD} measures, sigma 0.5, compute_var, "
+          f"separate_samples: {q_s * 1e3:.3f} ms; launches none; {S_FULL} "
+          f"samples vs float64: max|dF|={e_F:.3e} (tol {t_F:.3e}), "
+          f"max|dJ|={e_J:.3e} (tol {rel2 * sf2_2:.3e})")
+    if not (F.shape == J.shape == (M_QUAD, S) and np.all(np.isfinite(F))
+            and np.all(np.isfinite(J)) and e_F < t_F and e_J < rel2 * sf2_2):
+        raise AssertionError("quad disagrees with float64")
+    out["quad_ms"] = q_s * 1e3
+
+    # (d) random_function: one draw at 1024 points, then 256 at 64.
+    routes = dict(TL.ROBUST_ROUTES)
+    f1, rf_s, out["random_function"] = _synced(lambda: gp.random_function(xp))
+    route = [k for k in routes if TL.ROBUST_ROUTES[k] > routes[k]]
+    _expect("random_function", out["random_function"], self=1, cross=1)
+    if not (f1.shape == (M_PF, 1) and np.all(np.isfinite(f1))):
+        raise AssertionError("random_function: not finite")
+    xr = xs[:M_RF]
+    routes = dict(TL.ROBUST_ROUTES)
+    np.random.seed(SEED)
+    draws, rfn_s, out["random_draws"] = _synced(lambda: np.stack(
+        [gp.random_function(xr)[:, 0] for _ in range(N_RF)]))
+    _expect("random_function draws", out["random_draws"], self=N_RF,
+            cross=N_RF)
+    used = {k: TL.ROBUST_ROUTES[k] - routes[k] for k in routes}
+    mu_mix, s2_mix = gp.predict(xr)
+    z = np.abs(draws.mean(axis=0) - mu_mix[:, 0]) / np.sqrt(s2_mix[:, 0] / N_RF)
+    print(f"serving_rest random_function: one draw at {M_PF} points "
+          f"{rf_s * 1e3:.3f} ms ({route[0]} route); {N_RF} draws at {M_RF} "
+          f"points {rfn_s:.3f} s ({rfn_s / N_RF * 1e3:.3f} ms a draw, routes "
+          f"{used}); their mean vs predict's mixture mean: max |d|/se = "
+          f"{float(np.max(z)):.3f} (tol 5)")
+    if not (np.all(np.isfinite(draws)) and np.all(z <= 5.0)):
+        raise AssertionError("random_function draws miss the mixture mean")
+    out["random_function_ms"] = rf_s * 1e3
+
+    # (e) predict_quantile at 256 points.
+    q, pq_s, out["predict_quantile"] = _synced(
+        lambda: gp.predict_quantile([0.1, 0.5, 0.9], xs[:M_Q]))
+    _expect("predict_quantile", out["predict_quantile"], cross=S)
+    print(f"serving_rest predict_quantile: {M_Q} points, q = (0.1, 0.5, 0.9): "
+          f"{pq_s * 1e3:.3f} ms; min gaps {np.min(np.diff(q, axis=1), axis=0)}")
+    if not (q.shape == (M_Q, 3) and np.all(np.isfinite(q))
+            and np.all(np.diff(q, axis=1) > 0)):
+        raise AssertionError("predict_quantile: not finite and increasing")
+
+    # (f) fmin with 3 starts, its objective's evaluations counted.
+    evals = [0]
+    inner = MO.multistart_map
+
+    def counted(obj, starts, *a, **kw):
+        def o(x):
+            evals[0] += 1
+            return obj(x)
+        return inner(o, starts, *a, **kw)
+
+    MO.multistart_map = counted
+    try:
+        np.random.seed(SEED)
+        (x, fval), fm_s, launches = _synced(lambda: gp.fmin(n_starts=3))
+    finally:
+        MO.multistart_map = inner
+    diam = X_all.max(axis=0) - X_all.min(axis=0)
+    lb, ub = X_all.min(axis=0) - 10 * diam, X_all.max(axis=0) + 10 * diam
+    best, _ = gp.predict(X_all[np.argmin(y_all.ravel())][None, :])
+    print(f"serving_rest fmin: 3 starts, {fm_s:.3f} s, {evals[0]} objective "
+          f"evaluations ({fm_s / evals[0] * 1e3:.3f} ms each); launches "
+          f"{launches} (the plain composition); fval {fval:.6f}, mixture "
+          f"mean at the best training row {float(best[0, 0]):.6f}")
+    _expect("fmin", launches)
+    if not (np.all(x >= lb) and np.all(x <= ub) and fval <= float(
+            best[0, 0]) + 1e-6 * max(1.0, abs(fval))):
+        raise AssertionError("fmin: out of its box or above its start")
+    out["fmin_s"], out["fmin_evals"] = fm_s, evals[0]
+    print(f"serving_rest: the phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def _grad_check(what, v32, g32, v64, g64, kappas):
@@ -1303,7 +1610,8 @@ def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     }
 
 
-def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
+def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp,
+                  rest):
     from gpyreg_tpu_torch.ops.tile_kernels import PROFILES
 
     tile = ("gpyreg_tpu_torch/csrc/kernel_tile.cu",
@@ -1340,10 +1648,25 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp):
          chain["fit_eissample_bench"]["launches"], "self"),
         ("fit_mala_config5 self", "self", chain["fit_mala_config5"]["launches"],
          "self"),
+        # Phase 9a: the rank-1 updates' columns, one entry an update.
+        *((f"rank-1 update {k + 1} cross column", f"cross_r1_{k}", c, "cross")
+          for k, c in enumerate(rest["rank1"])),
+        ("predict_full self", "self_pf", rest["predict_full"], "self"),
+        ("predict_full cross", "cross_pf", rest["predict_full"], "cross"),
+        ("random_function self", "self_pf", rest["random_function"], "self"),
+        ("random_function cross", "cross_pf", rest["random_function"],
+         "cross"),
+        ("random_function draws self", "self_64", rest["random_draws"], "self"),
+        ("random_function draws cross", "cross_64", rest["random_draws"],
+         "cross"),
+        ("predict 256 cross", "cross_256", rest["predict"], "cross"),
+        ("predict_quantile cross", "cross_256", rest["predict_quantile"],
+         "cross"),
     ):
         err, ms, plain_ms, n, m, d = kern[(key, "se")]
-        # The one-column cross of GP.sample runs on the path without TMA.
-        launches = counts[path + "_unaligned" if key.startswith("cross_col")
+        # The one-column crosses run on the path without TMA.
+        launches = counts[path + "_unaligned"
+                          if key.startswith(("cross_col", "cross_r1"))
                           else path]
         e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile,
                    launches, err, ms, plain_ms,
@@ -1434,6 +1757,7 @@ def main():
     gp, serve_launches = phase_slice(X, y, xs, hyp)
     phase_full_size_accuracy(gp, X, y, xs, hyp)
     cfg5 = phase_train_config5(gp, hyp)
+    rest = phase_serving_rest(gp, X, y, xs, hyp)
     del gp
     torch.cuda.empty_cache()
     phase_accuracy()
@@ -1472,7 +1796,7 @@ def main():
 
     print(json.dumps({"kernels": _kernels_line(kern, vjp, serve_launches,
                                                 bench, cfg5, fit_b, fit_5,
-                                                samp)}))
+                                                samp, rest)}))
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(f"card (name, power limit): {smi}")
     print(json.dumps({

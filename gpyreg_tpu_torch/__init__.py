@@ -13,16 +13,21 @@ This package imports ``torch`` and never JAX.  It covers serving
 samples, ``GP.predict``, ``save``/``load``), the NLML with its gradient,
 batched over hyperparameter vectors, with and without the hyperprior
 (``core.nlml.get_fns``, ``GP.log_likelihood``, ``GP.log_posterior``),
-and ``GP.fit``: the design, the multistart MAP and the slice-sampled
+``GP.fit``: the design, the multistart MAP and the sampled
 hyperposterior (slicesample, covsample, chains, the slicelite warm
-refit, the host ``SliceSampler``), with ``GP.sample`` on the fitted
-surrogate.  ``ROADMAP.md`` lists the modules still to come.
+refit, the host ``SliceSampler``, MALA, HMC and ensemble slice
+sampling), and the rest of serving: the rank-1 ``update``,
+``predict_full``, ``quad``, ``random_function``, ``predict_quantile``,
+``fmin``, ``sample`` and ``plot``.  ``ROADMAP.md`` lists the modules
+still to come (output warping, the matrix-free tier, the mesh tier).
 """
 
 from . import covariance_functions
+from . import f_min_fill
 from . import isotropic_covariance_functions
 from . import mean_functions
 from . import noise_functions
+from . import slice_sample
 from .gp import GP, Posterior
 
 __version__ = "0.1.0"
@@ -34,4 +39,6 @@ __all__ = [
     "isotropic_covariance_functions",
     "mean_functions",
     "noise_functions",
+    "f_min_fill",
+    "slice_sample",
 ]

@@ -23,44 +23,54 @@ every self- and cross-covariance with the hand-written kernel tile, and
 takes the gradient of its self-covariance with the hand-written gradient
 tile (``ops/kernels.py`` dispatches).
 
+The rest of serving (``gpyreg_tpu/gp.py:1075-1236``, :2120-2162,
+:2295-2510, :2660-2826, :2896-3047, :681-731): the rank-1 branch of
+``update`` (``core/rank1.py``), ``predict_full``, ``quad``,
+``random_function``, ``predict_quantile``, ``fmin``, ``plot`` and
+``__repr__``/``__str__``.
+
 Left out, with the JAX package's lines:
 
 - until later slices, ``fit`` raising ``NotImplementedError`` for each:
   ``method="cg"`` and ``"auto"`` above its threshold (:1618-1630), the
   ``outwarp_fun`` option (:1550-1558);
-- until later slices: ``fmin`` (:2785-2826, with the rest of serving: it
-  differentiates the predictive mean in the test point), the rank-1
-  branch of ``update`` (:1075-1212, with ``core/rank1.py``; a single new
-  point is a full rebuild here), ``predict_full``, ``quad``,
-  ``random_function``, ``predict_quantile`` and ``plot`` (:2120-2162,
-  :2295-2510, :2660-2735, :2892-3049), output warping and the CG /
-  matrix-free posteriors (:1312-1391, ``predict``'s outwarp branches
-  :2205-2259), the mesh tier (``mesh``, :312-323, :1981-2012), and
-  ``__repr__``/``__str__`` (:681-731);
+- until later slices: output warping and the CG / matrix-free
+  posteriors (:1312-1391, ``predict``'s outwarp branches :2205-2259,
+  ``predict_quantile``'s :2693-2731), the mesh tier (``mesh``,
+  :312-323, :1981-2012, ``quad``'s mesh block :2355-2377);
 - for good, being TPU-only: ``mxu_predict`` (:301-311, :527-538),
   ``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
-  compiled XLA programs), the stacked-factor cache ``_stack_cache`` and
-  the live-GP HBM pre-flight with ``fit``'s warning and
-  ``_device_factor_bytes`` (:169-237, :350-375, :518-551, :1521-1542),
-  the compile log and ``fit_timings``' ``n_compiles`` / ``compile_s``
-  (:1392-1400), and ``fit``'s ``trace_dir`` option (:1505-1509, a hook
-  into the JAX profiler; ``tools/profile_torch_slice.py`` profiles a
-  fit).
+  compiled XLA programs, so the rank-1 update grows each factor by one
+  row and column instead of writing into padding, and needs no
+  bucket-full rule, :1104-1107), the stacked-factor cache
+  ``_stack_cache`` and the live-GP HBM pre-flight with ``fit``'s warning
+  and ``_device_factor_bytes`` (:169-237, :350-375, :518-551,
+  :1521-1542), the compile log and ``fit_timings``' ``n_compiles`` /
+  ``compile_s`` (:1392-1400), and ``fit``'s ``trace_dir`` option
+  (:1505-1509, a hook into the JAX profiler;
+  ``tools/profile_torch_slice.py`` profiles a fit).
 """
 
 import time
+import warnings
+from textwrap import indent
 
 import numpy as np
 import scipy as sp
 import torch
 
+from . import covariance_functions as _cov_mod
+from . import mean_functions as _mean_mod
 from ._config import LCHOL_THRESHOLD, resolve_device
+from .core import rank1 as _rank1
 from .core.model import ModelSpec
 from .core.nlml import get_fns, posterior_factors, value_and_grad
 from .core.priors import build_prior_pack, log_prior
 from .f_min_fill import smoothbox_cdf, smoothbox_student_t_cdf
+from .formatting import full_repr
 from .inference import device_slice as _device_slice
 from .inference import fit_phases as _fit_phases
+from .inference import map_optimize as _map_optimize
 from .inference import sampling as _sampling
 from .ops.linalg import neg_inverse_from_chol
 from .serving import (
@@ -68,10 +78,16 @@ from .serving import (
     _scaled_upper_batch,
     _sw_batch,
     chol_branch,
+    chol_branch_full,
     inv_branch,
+    inv_branch_full,
     mean_branch,
     predict_chunked,
     prior_branch,
+    prior_branch_full,
+    quad_moments,
+    random_draw,
+    random_prior_draw,
 )
 
 _TORCH_DTYPES = {
@@ -101,18 +117,51 @@ class Posterior:
     alpha = (K + sn2_mult*Sigma)^-1 (y - m); sW = 1/sqrt(min(sn2)*sn2_mult);
     L is the upper Cholesky factor of the scaled matrix when L_chol, else
     the explicit negative inverse.  The factors are tensors on the GP's
-    device.
+    device.  Assigning ``alpha``, ``sW`` or ``L`` stores the value as
+    given and marks the field as the caller's (``gpyreg_tpu/gp.py:
+    135-140``): a rank-1 ``update`` then rebuilds the posteriors instead
+    of extending a factor it did not build.
     """
 
-    __slots__ = ("hyp", "alpha", "sW", "L", "sn2_mult", "L_chol")
+    __slots__ = ("hyp", "sn2_mult", "L_chol", "_alpha", "_sW", "_L",
+                 "_direct")
 
     def __init__(self, hyp, alpha, sW, L, sn2_mult, Lchol):
         self.hyp = hyp
-        self.alpha = alpha
-        self.sW = sW
-        self.L = L
+        self._alpha = alpha
+        self._sW = sW
+        self._L = L
         self.sn2_mult = sn2_mult
         self.L_chol = Lchol
+        self._direct = set()
+
+    def _set(self, name, v):
+        setattr(self, "_" + name, v)
+        self._direct.add(name)
+
+    @property
+    def alpha(self):
+        return self._alpha
+
+    @alpha.setter
+    def alpha(self, v):
+        self._set("alpha", v)
+
+    @property
+    def sW(self):
+        return self._sW
+
+    @sW.setter
+    def sW(self, v):
+        self._set("sW", v)
+
+    @property
+    def L(self):
+        return self._L
+
+    @L.setter
+    def L(self, v):
+        self._set("L", v)
 
 
 class GP:
@@ -341,6 +390,65 @@ class GP:
                 del alphas, Ls
                 start = stop
         return posts
+
+    # ------------------------------------------------------------------
+    # Representation
+    # ------------------------------------------------------------------
+
+    def __repr__(self):
+        """Every attribute, the model's first (``gpyreg_tpu/gp.py:
+        681-698``); the cached device tensors are left out."""
+        return full_repr(
+            self,
+            "GP",
+            order=[
+                "D",
+                "covariance",
+                "mean",
+                "noise",
+                "X",
+                "y",
+                "s2",
+                "lower_bounds",
+                "upper_bounds",
+                "posteriors",
+            ],
+            exclude=["_ctx", "_fit_ctx"],
+        )
+
+    def __str__(self):
+        """A summary of the model (``gpyreg_tpu/gp.py:700-731``)."""
+        def n_params(k):
+            return f"{k} parameter" + ("" if k == 1 else "s")
+
+        cov_name = type(self.covariance).__name__
+        if cov_name == "Matern":
+            cov_name += f"(degree={self.covariance.degree})\n"
+        p0, p1, p2 = self.noise.parameters[:3]
+        noise_flags = [
+            flag
+            for cond, flag in [
+                (p0 == 1, "constant_add=True"),
+                (p1 == 1, "user_provided_add=True"),
+                (p1 == 2, "scale_user_provided=True"),
+                (p2 == 1, "rectified_linear_output_dependent_add=True"),
+            ]
+            if cond
+        ]
+        noise_name = type(self.noise).__name__
+        if noise_flags:
+            noise_name += "(" + ", ".join(noise_flags) + ")"
+        cov_N, noise_N, mean_N = self._hyp_counts()
+        s_N = 0 if self.posteriors is None else np.size(self.posteriors)
+        lines = [
+            f"Dimension: {self.D}",
+            f"Covariance function: {cov_name}, {n_params(cov_N)}",
+            f"Mean function: {type(self.mean).__name__}, {n_params(mean_N)}",
+            f"Noise function: {noise_name}, {n_params(noise_N)}",
+            "Hyperparameter priors: " + ("none" if self.no_prior else "present"),
+            f"Hyperparameter samples: {s_N}",
+        ]
+        return "GP:\n" + indent("\n".join(lines), "    ")
 
     # ------------------------------------------------------------------
     # Bounds, priors and hyperparameter access
@@ -608,10 +716,32 @@ class GP:
         hyp: np.ndarray = None,
         compute_posterior: bool = True,
     ):
-        """Add data and/or replace hyperparameters, then rebuild every
-        sample's posterior (reference gaussian_process.py:691-884, full
-        rebuild; the rank-1 branch arrives with ``core/rank1.py``)."""
+        """Add data and/or replace hyperparameters, then bring every
+        sample's posterior up to date (reference gaussian_process.py:
+        691-884, ``gpyreg_tpu/gp.py:1053-1275``).
+
+        A single new point (with ``y_new``, without ``s2_new``) on
+        posteriors this GP built extends each sample's factors in O(N^2)
+        (``core/rank1.py``; ``hyp`` is then ignored, as in the JAX
+        package).  A sample whose update is numerically unstable warns and
+        is rebuilt alone.  Anything else, and posteriors holding a factor
+        the caller assigned, rebuilds every sample."""
         X_new, y_new, s2_new = self._convert_shapes(X_new, y_new, s2_new)
+        N_old = None if self.X is None else self.X.shape[0]
+        rank_one = (
+            X_new is not None
+            and y_new is not None
+            and compute_posterior
+            and self.X is not None
+            and self.y is not None
+            and X_new.shape[0] == 1
+            and y_new.shape[0] == 1
+            and s2_new is None
+            and self.posteriors is not None
+            and self._rank_one_ready(N_old)
+        )
+        unstable = self._rank_one_update(X_new, y_new) if rank_one else []
+
         for name, new in (("X", X_new), ("y", y_new), ("s2", s2_new)):
             if new is not None:
                 old = getattr(self, name)
@@ -621,6 +751,15 @@ class GP:
                     new.copy() if old is None else np.concatenate((old, new)),
                 )
         self._invalidate()
+
+        if rank_one:
+            if unstable:
+                fixed = self._compute_posteriors(
+                    np.stack([self.posteriors[s].hyp for s in unstable])
+                )
+                for p, s in zip(fixed, unstable):
+                    self.posteriors[s] = p
+            return
 
         if hyp is None:
             hyp = self.get_hyperparameters(as_array=True)
@@ -637,6 +776,78 @@ class GP:
                 [Posterior(h, None, None, None, None, None) for h in hyp],
                 dtype=object,
             )
+
+    def _rank_one_ready(self, N_old):
+        """The JAX package's rank-1 eligibility of the posteriors
+        (``gpyreg_tpu/gp.py:1081-1101``) without its padding rules: every
+        sample holds factors this GP built (none assigned by the caller),
+        of the old size, in the GP's dtype and on its device."""
+        shapes = {"alpha": (N_old, 1), "sW": (N_old, 1), "L": (N_old, N_old)}
+        dev = self.device
+        for p in self.posteriors:
+            if p._direct or p.L_chol is None or p.sn2_mult is None:
+                return False
+            for name, shape in shapes.items():
+                v = getattr(p, name)
+                if not (
+                    isinstance(v, torch.Tensor)
+                    and tuple(v.shape) == shape
+                    and v.dtype == self._tdtype
+                    and v.device.type == dev.type
+                    and dev.index in (None, v.device.index)
+                ):
+                    return False
+        return True
+
+    def _rank_one_update(self, X_new, y_new):
+        """Extend each sample's factors by the point (X_new, y_new), one
+        sample at a time, so that the device holds the set plus one grown
+        factor.  Each sample takes its own parametrization's update.
+        Returns the indices of the samples whose update was unstable
+        (``ok`` False): their factors are left as they were, and the
+        caller rebuilds them on the grown data.
+
+        If a sample's update raises (say, out of device memory), the
+        samples already grown lose their factors, as after ``clean()``,
+        and the error propagates with the data unchanged: no posterior is
+        left a size apart from the data, and the next ``update`` rebuilds
+        every sample.  Keeping the old factors to restore instead would
+        double the peak (8.6 GB more at N = 16384, 8 samples)."""
+        spec = self._spec()
+        X, _, _ = self._data()
+        cov_N, noise_N, _ = self._hyp_counts()
+        x_new = self._tensor(X_new)
+        y_t = self._tensor(y_new[0, 0])
+        unstable, grown = [], []
+        try:
+            with torch.no_grad():
+                for i, p in enumerate(self.posteriors):
+                    sn2 = self.noise.compute(
+                        p.hyp[cov_N : cov_N + noise_N], X_new, y_new, 0
+                    )
+                    sn2_eff = self._tensor(
+                        float(np.ravel(sn2)[0]) * p.sn2_mult
+                    )
+                    fn = _rank1.chol_one if p.L_chol else _rank1.inv_one
+                    L, alpha, sW, ok = fn(
+                        spec, p.hyp, p.alpha, p.L, p.sW, X, x_new, y_t,
+                        sn2_eff,
+                    )
+                    if not bool(ok):
+                        unstable.append(i)
+                        warnings.warn(
+                            "Rank-one posterior update unstable for "
+                            + f"posterior {i}. Reverting to full update.",
+                            stacklevel=3,
+                        )
+                        continue
+                    p._L, p._alpha, p._sW = L, alpha, sW
+                    grown.append(p)
+        except BaseException:
+            for p in grown:
+                p.alpha = p.sW = p.L = None
+            raise
+        return unstable
 
     def clean(self):
         """Drop reconstructible posterior factors and temporary data;
@@ -1145,6 +1356,220 @@ class GP:
             return mu, s2, lpd
         return mu, s2
 
+    def _group_predict_full(self, x_star):
+        """Per-sample predictive mean (M, s_N) and full covariance
+        (s_N, M, M), with one device-to-host copy of each at the end."""
+        spec = self._spec()
+        S = self.posteriors.size
+        xs = self._tensor(x_star)
+        M = xs.shape[0]
+        mu = torch.empty((S, M), dtype=self._tdtype, device=self.device)
+        cov = torch.empty((S, M, M), dtype=self._tdtype, device=self.device)
+        with torch.no_grad():
+            if self.y is None:
+                for s, p in enumerate(self.posteriors):
+                    mu[s], cov[s] = prior_branch_full(spec, p.hyp, xs)
+            else:
+                X, _, _ = self._data()
+                for s, p in enumerate(self.posteriors):
+                    branch = chol_branch_full if p.L_chol else inv_branch_full
+                    mu[s], cov[s] = branch(
+                        spec, p.hyp, p.alpha, p.L, p.sW, X, None, xs
+                    )
+        return (mu.cpu().numpy().astype(np.float64).T.copy(),
+                cov.cpu().numpy().astype(np.float64))
+
+    def predict_full(
+        self,
+        x_star: np.ndarray,
+        y_star: np.ndarray = None,
+        s2_star: np.ndarray = None,
+        add_noise: bool = False,
+    ):
+        """Posterior mean and full covariance per hyperparameter sample:
+        mu (M, s_N), cov (M, M, s_N) (``gpyreg_tpu/gp.py:2120-2162``).
+        The observation noise of ``add_noise`` goes on the diagonal only,
+        the JAX package's correction of the reference, which spreads a
+        heteroskedastic (M, 1) noise over every column
+        (gaussian_process.py:1659)."""
+        x_star, y_star, s2_star = self._convert_shapes(
+            x_star, y_star, s2_star
+        )
+        cov_N, noise_N, _ = self._hyp_counts()
+        N_star = x_star.shape[0]
+
+        mu, cov = self._group_predict_full(x_star)
+
+        if add_noise:
+            for s, p in enumerate(self.posteriors):
+                sn2_mult = 1 if p.sn2_mult is None else p.sn2_mult
+                sn2_star = self.noise.compute(
+                    p.hyp[cov_N : cov_N + noise_N], x_star, y_star, s2_star
+                )
+                sn2_diag = np.broadcast_to(np.ravel(sn2_star), (N_star,))
+                cov[s, :, :] += np.diag(sn2_diag * sn2_mult)
+
+        return mu, cov.transpose(1, 2, 0)
+
+    # ------------------------------------------------------------------
+    # Bayesian quadrature
+    # ------------------------------------------------------------------
+
+    def quad(
+        self,
+        mu,
+        sigma,
+        compute_var: bool = False,
+        separate_samples: bool = False,
+    ):
+        """Closed-form integral of the GP against Gaussian measures
+        N(mu, sigma^2), squared exponential kernel only
+        (``gpyreg_tpu/gp.py:2295-2449``, reference gaussian_process.py:
+        1818-1981), with zero, constant or negative-quadratic means.
+        ``mu`` is (M, D) or one value, ``sigma`` (M, D), (1, D) or one
+        value.  Each sample integrates on the GP's device in its own
+        parametrization (``serving.quad_moments``).
+
+        Returns F (M, 1), or (M, s_N) with ``separate_samples``, and with
+        ``compute_var`` also its variance, the mixture's across samples
+        unless ``separate_samples``."""
+        if not isinstance(self.covariance, _cov_mod.SquaredExponential):
+            raise ValueError(
+                "Bayesian quadrature only supports the squared exponential "
+                "kernel."
+            )
+        self._require_factors("Bayesian quadrature")
+        if not isinstance(
+            self.mean,
+            (
+                _mean_mod.ZeroMean,
+                _mean_mod.ConstantMean,
+                _mean_mod.NegativeQuadratic,
+            ),
+        ):
+            raise ValueError(
+                "Bayesian quadrature supports zero, constant, and "
+                "negative-quadratic mean functions only."
+            )
+
+        D = self.D
+        N_s = np.size(self.posteriors)
+        if np.size(mu) == 1:
+            mu = np.tile(mu, (1, D))
+        mu = np.atleast_2d(np.asarray(mu, dtype=np.float64))
+        N_star = mu.shape[0]
+        if np.size(sigma) == 1:
+            sigma = np.tile(sigma, (1, D))
+        sigma = np.atleast_2d(np.asarray(sigma, dtype=np.float64))
+
+        spec = self._spec()
+        X, _, _ = self._data()
+        mu_t, sigma_t = self._tensor(mu), self._tensor(sigma)
+        # The measures go in chunks whose (chunk, N, D) difference
+        # temporary stays within the predictive chunk's budget.
+        chunk = int(max(1, _PREDICT_CHUNK_ELEMS // max(1, X.shape[0] * D)))
+        out = torch.empty((2 if compute_var else 1, N_s, N_star),
+                          dtype=self._tdtype, device=self.device)
+        with torch.no_grad():
+            for s, p in enumerate(self.posteriors):
+                F_s, J_s = quad_moments(
+                    spec, bool(p.L_chol), p.hyp, p.alpha, p.L, p.sn2_mult, X,
+                    mu_t, sigma_t, chunk, compute_var,
+                )
+                out[0, s] = F_s
+                if compute_var:
+                    out[1, s] = J_s
+        packed = out.cpu().numpy().astype(np.float64)
+        F = packed[0].T.copy()
+        if compute_var:
+            F_var = packed[1].T.copy()
+
+        if N_s > 1 and not separate_samples:
+            F_bar = np.reshape(np.sum(F, 1), (-1, 1)) / N_s
+            if compute_var:
+                Fss_var = np.sum((F - F_bar) ** 2, 1) / (N_s - 1)
+                F_var = np.reshape(np.sum(F_var, 1) / N_s + Fss_var, (-1, 1))
+            F = F_bar
+
+        if compute_var:
+            return F, F_var
+        return F
+
+    # ------------------------------------------------------------------
+    # Random function draws
+    # ------------------------------------------------------------------
+
+    def random_function(self, X_star: np.ndarray, add_noise: bool = False):
+        """Draw one random function from the GP at ``X_star`` (N_star, D)
+        (``gpyreg_tpu/gp.py:2451-2510``, reference gaussian_process.py:
+        2241-2329): one posterior sample chosen uniformly, the predictive
+        covariance factored by ``ops.linalg.robust_cholesky``.  The
+        randomness is numpy's global stream, in the JAX package's order:
+        ``np.random.randint`` for the sample, then
+        ``np.random.standard_normal((N_star, 1))``, then with
+        ``add_noise`` the noise's normal draw.  Returns (N_star, 1) in the
+        GP's dtype, float64 with ``add_noise``."""
+        N_star = X_star.shape[0]
+        N_s = np.size(self.posteriors)
+        cov_N, noise_N, _ = self._hyp_counts()
+        if self.y is not None:
+            self._require_factors("random_function")
+
+        s = np.random.randint(0, N_s)
+        p = self.posteriors[s]
+        hyp = p.hyp
+        zr = np.random.standard_normal((N_star, 1)).astype(self.dtype)
+
+        spec = self._spec()
+        xs, z = self._tensor(X_star), self._tensor(zr)
+        with torch.no_grad():
+            if self.y is None:
+                f = random_prior_draw(spec, hyp, xs, z)
+            else:
+                X, _, _ = self._data()
+                f = random_draw(spec, bool(p.L_chol), hyp, p.alpha, p.L,
+                                p.sW, X, xs, z)
+        f_star = f.cpu().numpy()
+
+        if add_noise:
+            sn2 = self.noise.compute(
+                hyp[cov_N : cov_N + noise_N], X_star, None, None
+            )
+            sn2_mult = 1 if p.sn2_mult is None else p.sn2_mult
+            return f_star + np.sqrt(
+                sn2 * sn2_mult
+            ) * np.random.standard_normal(size=f_star.shape)
+        return f_star
+
+    def predict_quantile(
+        self,
+        q,
+        x_star: np.ndarray,
+        y_star: np.ndarray = None,
+        s2_star: np.ndarray = None,
+        observed: bool = True,
+        nx: int = 10,
+    ):
+        """Quantiles of the mixture predictive distribution
+        (``gpyreg_tpu/gp.py:2660-2734``, matlab/gplite/gplite_qpred.m:
+        1-49): each sample's Gaussian predictive is discretized on an
+        ``nx``-point norminv grid, and the quantiles ``q`` are taken over
+        the pooled grid.  ``observed`` gives quantiles of the observations
+        (with noise), else of the latent function.
+
+        Returns (M, len(q)), or (M,) for a scalar ``q``."""
+        x_star, y_star, s2_star = self._convert_shapes(
+            x_star, y_star, s2_star
+        )
+        xx = sp.stats.norm.ppf(np.linspace(0.5 / nx, 1 - 0.5 / nx, nx))
+        mu, s2 = self.predict(
+            x_star, y_star, s2_star, add_noise=observed, separate_samples=True
+        )
+        grid = mu[:, :, None] + np.sqrt(np.maximum(s2, 0))[:, :, None] * xx
+        grid = grid.reshape(x_star.shape[0], -1)
+        out = np.quantile(grid, np.atleast_1d(q), axis=1).T
+        return out[:, 0] if np.isscalar(q) else out
+
     # ------------------------------------------------------------------
     # Sampling the surrogate
     # ------------------------------------------------------------------
@@ -1162,13 +1587,21 @@ class GP:
                 "update(compute_posterior=True)."
             )
 
-    def _mixture_mean_variance_fn(self, compute_var: bool = True):
+    def _mixture_mean_variance_fn(self, compute_var: bool = True,
+                                  differentiable: bool = False):
         """(x (D,) -> (mu, s2)) mixture predictive over the current
         posteriors (``gpyreg_tpu/gp.py:2736-2783``), as 0-d tensors on the
         device; ``x`` is a tensor, cast to the GP's dtype and device.  Each
         call builds K(X, x) of every sample with the kernel tile (a float32
         GP on the card).  Without ``compute_var`` s2 is None and no
-        triangular solve runs."""
+        triangular solve runs.  ``differentiable`` (the mean alone) builds
+        K(X, x) with the plain composition instead
+        (``ops.kernels.kernel_matrix_plain``), so that autograd
+        differentiates mu in ``x``: the cross-covariance tile has no
+        gradient."""
+        if differentiable and compute_var:
+            raise ValueError("differentiable serves the mean alone; pass "
+                             "compute_var=False")
         self._require_factors("fmin/sample surrogate optimization")
         spec = self._spec()
         X, _, _ = self._data()
@@ -1183,7 +1616,8 @@ class GP:
             mus, s2s = [], []
             for p, h in zip(posts, hyps):
                 if not compute_var:
-                    mus.append(mean_branch(spec, h, p.alpha, X, None, xs))
+                    mus.append(mean_branch(spec, h, p.alpha, X, None, xs,
+                                           differentiable))
                     continue
                 branch = chol_branch if p.L_chol else inv_branch
                 m, v = branch(spec, h, p.alpha, p.L, p.sW, X, None, xs)
@@ -1201,6 +1635,49 @@ class GP:
             return mu_bar, torch.mean(s2_all) + v
 
         return mu_s2
+
+    def fmin(self, x0=None, max_flag: bool = False, n_starts: int = 3):
+        """Global minimum (or maximum) of the GP's mixture posterior mean
+        (``gpyreg_tpu/gp.py:2785-2826``, matlab/gplite/gplite_fmin.m:
+        1-75): multistart bounded L-BFGS
+        (``inference.map_optimize.multistart_map``) inside
+        [min(X) - 10 diam, max(X) + 10 diam], from ``x0``, the best
+        training point and random points of the better half of the data
+        (``np.random.permutation``, as in the JAX package).  The
+        objective differentiates the mean in the test point, so it builds
+        K(X, x) with the plain composition, never the kernel tile.
+
+        Returns (x (D,), fval)."""
+        X, y = self.X, self.y
+        diam = np.max(X, axis=0) - np.min(X, axis=0)
+        LB = np.min(X, axis=0) - 10 * diam
+        UB = np.max(X, axis=0) + 10 * diam
+
+        order = np.argsort(y.ravel())
+        if max_flag:
+            order = order[::-1]
+        starts = [] if x0 is None else [np.atleast_2d(x0)]
+        starts.append(X[order[:1], :])
+        rest = X[order[1:], :]
+        n_hpd = int(np.ceil(rest.shape[0] * 0.5))
+        need = max(n_starts, len(starts)) - len(starts)
+        if need > 0 and n_hpd > 0:
+            idx = np.random.permutation(n_hpd)[: min(need, n_hpd)]
+            starts.append(rest[idx, :])
+        starts = np.concatenate(starts, axis=0)
+
+        mu_s2 = self._mixture_mean_variance_fn(compute_var=False,
+                                               differentiable=True)
+        sign = -1.0 if max_flag else 1.0
+
+        def obj(x):
+            return sign * mu_s2(x)[0]
+
+        xs, fs, _ = _map_optimize.multistart_map(
+            obj, starts, LB, UB, tol=1e-8, device=self.device
+        )
+        best = int(np.argmin(fs))
+        return xs[best], float(fs[best] * sign)
 
     def sample(
         self,
@@ -1268,6 +1745,165 @@ class GP:
                 burn=int(np.ceil(n_samples / 10)),
             )
         return res["samples"]
+
+    # ------------------------------------------------------------------
+    # Plotting
+    # ------------------------------------------------------------------
+
+    def _plot_line_inputs(self, dim, lo, hi, n, anchor):
+        """Grid along one input dimension with the others held at the
+        anchor point; returns (ticks (n,), points (n, D))."""
+        ticks = np.linspace(lo, hi, n)
+        if self.D == 1:
+            return ticks, ticks[:, None]
+        base = anchor if anchor is not None else np.zeros(self.D)
+        pts = np.broadcast_to(base, (n, self.D)).copy()
+        pts[:, dim] = ticks
+        return ticks, pts
+
+    def plot(
+        self,
+        x0: np.ndarray = None,
+        lb: np.ndarray = None,
+        ub: np.ndarray = None,
+        delta_y: float = None,
+        max_min_flag: bool = True,
+    ):
+        """D x D panel plot of the GP posterior (``gpyreg_tpu/gp.py:
+        2896-3047``, the visual contract of reference gaussian_process.py:
+        1985-2215): the diagonal shows 1-D predictive profiles (mean +/-
+        1.96 SD) along each dimension through ``x0``; above the diagonal,
+        predictive-mean contours for each input pair; below, predictive
+        SD contours.  ``delta_y`` zooms each axis to the region where the
+        mean stays within ``delta_y`` of its value at ``x0``.  Every
+        prediction goes through :meth:`predict`.  matplotlib is imported
+        here, not with the package."""
+        import matplotlib.pyplot as plt
+
+        D = self.D
+        if lb is not None or ub is not None:
+            delta_y = None
+
+        # Default plot ranges: data box widened by the RMS-averaged
+        # posterior lengthscale per dimension.
+        ell2 = np.stack(
+            [np.exp(2.0 * p.hyp[:D]) for p in self.posteriors], axis=0
+        )
+        reach = np.sqrt(np.mean(ell2, axis=0))
+        if self.X is not None:
+            lo = np.min(self.X, axis=0) - reach
+            hi = np.max(self.X, axis=0) + reach
+        else:
+            lo, hi = -reach, reach
+        if lb is not None:
+            lo = np.asarray(lb, dtype=np.float64).copy()
+        if ub is not None:
+            hi = np.asarray(ub, dtype=np.float64).copy()
+
+        if x0 is None and self.X is not None and self.y is not None:
+            pick = np.argmax if max_min_flag else np.argmin
+            x0 = self.X[pick(self.y.ravel())]
+
+        fig, axes = plt.subplots(
+            D,
+            D,
+            squeeze=False,
+            gridspec_kw={"wspace": 0.28, "hspace": 0.28},
+        )
+        n_line = 1000
+        n_grid = 100
+
+        # Diagonal: 1-D profiles (with optional delta_y auto-zoom).
+        for i in range(D):
+            ax = axes[i][i]
+            ticks, pts = self._plot_line_inputs(i, lo[i], hi[i], n_line, x0)
+            fmu, fs2 = self.predict(pts, add_noise=False)
+            if delta_y is not None and x0 is not None:
+                mu0, _ = self.predict(np.atleast_2d(x0), add_noise=False)
+                near = np.abs(fmu.ravel() - mu0.ravel()[0]) < delta_y
+                step = ticks[1] - ticks[0]
+                if near.any():
+                    sel = np.nonzero(near)[0]
+                    lo[i] = ticks[sel[0]] - 0.5 * step
+                    hi[i] = ticks[sel[-1]] + 0.5 * step
+                else:
+                    lo[i] = x0[i] - 0.5 * step
+                    hi[i] = x0[i] + 0.5 * step
+                ticks, pts = self._plot_line_inputs(
+                    i, lo[i], hi[i], n_line, x0
+                )
+                fmu, fs2 = self.predict(pts, add_noise=False)
+            band = 1.96 * np.sqrt(fs2.ravel())
+            ax.plot(ticks, fmu.ravel(), color="k", linewidth=1)
+            for sign in (-1.0, 1.0):
+                ax.plot(
+                    ticks,
+                    fmu.ravel() + sign * band,
+                    color=(0.8, 0.8, 0.8),
+                    linewidth=1,
+                )
+            ax.set_xlim(lo[i], hi[i])
+            ax.spines["top"].set_visible(False)
+            ax.spines["right"].set_visible(False)
+            if x0 is not None:
+                ax.axvline(x0[i], color="k", linewidth=1)
+            if D == 1:
+                ax.set_xlabel("x")
+                ax.set_ylabel("y")
+                if self.X is not None and self.y is not None:
+                    ax.scatter(self.X, self.y, color="blue")
+
+        # Off-diagonal pairs: mean contours above, SD contours below.
+        for i in range(D):
+            for j in range(i):
+                gx = np.linspace(lo[j], hi[j], n_grid)
+                gy = np.linspace(lo[i], hi[i], n_grid)
+                GX, GY = np.meshgrid(gx, gy)
+                base = x0 if x0 is not None else np.zeros(D)
+                pts = np.broadcast_to(base, (n_grid * n_grid, D)).copy()
+                pts[:, j] = GX.ravel()
+                pts[:, i] = GY.ravel()
+                fmu, fs2 = self.predict(pts, add_noise=False)
+
+                panels = (
+                    (axes[i][j], np.sqrt(fs2)),  # lower: SD
+                    (axes[j][i], fmu),  # upper: mean
+                )
+                for k, (ax, field) in enumerate(panels):
+                    Z = field.reshape(n_grid, n_grid)
+                    if k == 0:
+                        ax.contour(GX, GY, Z)
+                        xlim, ylim = (lo[j], hi[j]), (lo[i], hi[i])
+                        sx, sy, cx, cy = j, i, None, None
+                        if x0 is not None:
+                            cx, cy = x0[j], x0[i]
+                    else:
+                        ax.contour(GY.T, GX.T, Z.T)
+                        xlim, ylim = (lo[i], hi[i]), (lo[j], hi[j])
+                        sx, sy = i, j
+                        cx = cy = None
+                        if x0 is not None:
+                            cx, cy = x0[i], x0[j]
+                    ax.set_xlim(*xlim)
+                    ax.set_ylim(*ylim)
+                    ax.spines["top"].set_visible(False)
+                    ax.spines["right"].set_visible(False)
+                    if self.X is not None:
+                        ax.scatter(
+                            self.X[:, sx], self.X[:, sy], color="blue", s=10
+                        )
+                    if cx is not None:
+                        ax.axvline(cx, color="k", linewidth=1)
+                        ax.axhline(cy, color="k", linewidth=1)
+
+        # Edge labels.
+        if D > 1:
+            for i in range(D):
+                axes[i][0].set_ylabel(rf"$x_{i + 1}$")
+                axes[D - 1][i].set_xlabel(rf"$x_{i + 1}$")
+
+        plt.show()
+        return fig
 
     # ------------------------------------------------------------------
     # Serialization

@@ -24,15 +24,15 @@ point makes one value-and-gradient call of ``log_f`` on the device of
 :meth:`~.device_slice.TorchStream.hamiltonian` follows the JAX key tree
 ``key, k_mom, k_jit, k_acc = split(key, 4)``.
 
-A leapfrog point outside ``[LB, UB]`` is -inf with a zero gradient and
-costs no call of ``log_f``: the trajectory coasts, as the JAX module's
-docstring states (:26-28).  Its code evaluates such a point and keeps
-the finite gradient there (``_masked_value_and_grad`` zeroes only
-non-finite entries, ``gpyreg_tpu/inference/mala.py:68-71``), so a JAX
-trajectory that leaves the box can turn back into it and be accepted,
-where here it coasts on, ends outside and is rejected.  Both chains keep
-detailed balance; they differ only on such trajectories
-(``tests/test_torch_hmc.py`` pins the difference).
+A leapfrog point outside ``[LB, UB]`` is evaluated as the JAX code
+evaluates it (``_masked_value_and_grad``,
+``gpyreg_tpu/inference/mala.py:61-72``): its value is -inf, and the
+finite gradient of ``log_f`` there is kept, with only non-finite entries
+zeroed, so a trajectory that leaves the box can turn back into it and be
+accepted.  Each leapfrog point makes one call, inside the box or not
+(:class:`_value_and_grad`); MALA's helper, which skips the call outside
+the box, is right only for MALA, whose proposal outside the box is
+rejected whatever its gradient.
 
 Left out, with the JAX package's lines, for good, being TPU-only: the
 segmented chain ``_hmc_init``, ``_hmc_seg``, ``_hmc_pack_blocks`` and
@@ -48,6 +48,19 @@ from .mala import (_Adaptation, _accept_p, _masked_value_and_grad, _result,
                    _start)
 
 _TARGET_ACCEPT = 0.651  # optimal HMC acceptance (Beskos et al. 2013)
+
+
+class _value_and_grad(_masked_value_and_grad):
+    """``x -> (value, gradient)`` of ``log_f(x, *f_args)`` at every
+    point, as the JAX code's ``_masked_value_and_grad`` computes it: out
+    of bounds the value is -inf and the gradient the density's own, a NaN
+    value -inf, and non-finite gradient entries 0."""
+
+    def __call__(self, x):
+        v, g = self._evaluate(x)
+        if not np.all((x >= self.LB) & (x <= self.UB)):
+            v = -math.inf
+        return v, g
 
 
 def _run_chain(vg, x0, stream, M_sqrt, log_eps, n_iters, burn, n_leap):
@@ -121,7 +134,7 @@ def sample(
     if burn is None:
         burn = round(n_samples / 3)
     n_iters = int(burn + n_samples * thin)
-    vg = _masked_value_and_grad(log_f, LBa, UBa, tuple(f_args))
+    vg = _value_and_grad(log_f, LBa, UBa, tuple(f_args))
     chain = _run_chain(vg, x0, _as_stream(key), w, float(np.log(step_size)),
                        n_iters, int(burn), int(n_leapfrog))
     return _result("HMCSampler", *chain, x0, n_samples, int(burn), thin,

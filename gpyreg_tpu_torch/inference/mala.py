@@ -81,6 +81,11 @@ class _masked_value_and_grad:
     def __call__(self, x):
         if not np.all((x >= self.LB) & (x <= self.UB)):
             return -math.inf, np.zeros_like(x)
+        return self._evaluate(x)
+
+    def _evaluate(self, x):
+        """The call of ``log_f`` at ``x``, with the NaN value and the
+        non-finite gradient entries masked."""
         h = torch.tensor(x, dtype=torch.float64, device=self.device,
                          requires_grad=True)
         with torch.enable_grad():

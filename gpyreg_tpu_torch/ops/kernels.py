@@ -23,6 +23,13 @@ plain composition, as in the JAX package.  Left out of ``_fused_enabled``
 (``pallas_kernels.py:332``), set on a TPU; the ``GPYREG_TPU_NO_FUSED_KERNEL``
 switch (:42); and the limit D < 128 (:36-41), which the TPU's gradient
 kernel needs and the CUDA kernel does not (it stages D in chunks).
+
+The cross-covariance tile has no gradient, and ``kernel_matrix`` raises
+when autograd would need one.  A caller that differentiates K(X, Z)
+asks for the plain composition by name, ``kernel_matrix_plain``
+(``GP.fmin``'s objective, through ``serving.mean_branch(...,
+differentiable=True)``), as the JAX package's ``fmin`` differentiates
+its plain XLA composition and never its Pallas cross kernel.
 """
 
 import torch
@@ -100,6 +107,27 @@ def cov_params(base, iso, hyp_cov, X):
     return ell, sf2, alpha
 
 
+def _parse(cov):
+    iso = cov.endswith("_iso")
+    base = cov[:-4] if iso else cov
+    if base not in ("se", "m1", "m3", "m5", "rq") or (iso and base == "rq"):
+        raise ValueError(f"Unknown covariance kind: {cov}")
+    return base, iso
+
+
+def kernel_matrix_plain(cov: str, hyp_cov, X, Z=None):
+    """The plain composition of :func:`kernel_matrix` (no diagonal mode),
+    on every device and dtype, with autograd through every argument.
+    For the callers that differentiate in the test point ``Z``, such as
+    ``GP.fmin``'s objective: the kernel tile of the cross-covariance has
+    no gradient (``kernel_matrix`` raises when one is asked of it)."""
+    base, iso = _parse(cov)
+    hyp_cov = torch.as_tensor(hyp_cov, dtype=X.dtype, device=X.device)
+    ell, sf2, alpha = cov_params(base, iso, hyp_cov, X)
+    Zs = None if Z is None else Z / ell
+    return radial_profile(base, sq_dist(X / ell, Zs), sf2, alpha)
+
+
 def kernel_matrix(cov: str, hyp_cov, X, Z=None, diag=False):
     """Evaluate the covariance kernel named by ``cov``.
 
@@ -119,14 +147,11 @@ def kernel_matrix(cov: str, hyp_cov, X, Z=None, diag=False):
     -------
     K : (N, N), (N, M) or (N,) tensor
     """
-    iso = cov.endswith("_iso")
-    base = cov[:-4] if iso else cov
-    if base not in ("se", "m1", "m3", "m5", "rq") or (iso and base == "rq"):
-        raise ValueError(f"Unknown covariance kind: {cov}")
+    base, iso = _parse(cov)
     hyp_cov = torch.as_tensor(hyp_cov, dtype=X.dtype, device=X.device)
-    ell, sf2, alpha = cov_params(base, iso, hyp_cov, X)
 
     if diag:
+        _, sf2, _ = cov_params(base, iso, hyp_cov, X)
         return sf2 * torch.ones((X.shape[0],), dtype=X.dtype, device=X.device)
 
     if _fused_enabled(X, diag):
@@ -139,12 +164,13 @@ def kernel_matrix(cov: str, hyp_cov, X, Z=None, diag=False):
         ):
             raise NotImplementedError(
                 "The cross-covariance kernel tile has no gradient; it "
-                "serves predictions, which run under torch.no_grad()."
+                "serves predictions, which run under torch.no_grad().  A "
+                "caller that differentiates it asks for "
+                "kernel_matrix_plain."
             )
         return kernel_matrix_fused(cov, hyp_cov, X, Z)
 
-    Zs = None if Z is None else Z / ell
-    return radial_profile(base, sq_dist(X / ell, Zs), sf2, alpha)
+    return kernel_matrix_plain(cov, hyp_cov, X, Z)
 
 
 def cov_hyp_count(cov: str, D: int) -> int:

@@ -4,16 +4,16 @@ batch axis.
 Port of ``gpyreg_tpu/ops/linalg.py``: ``_chol_of`` (:127-141) and
 ``_jittered_chol_impl`` (:483-527) with the ``jittered_cholesky`` VJP
 (``_cholesky_vjp_core``, :428-473) as :func:`jittered_cholesky`,
-``chol_solve`` (:476), ``quad_logdet`` with its VJP (:530-590) and
-``neg_inverse_from_chol`` (:593-630).  The factorizations and solves are
-cuSOLVER/cuBLAS (LAPACK on the CPU) through ``torch.linalg``.  The two
+``chol_solve`` (:476), ``quad_logdet`` with its VJP (:530-590),
+``neg_inverse_from_chol`` (:593-630) and ``robust_cholesky``
+(:633-662).  The factorizations and solves are cuSOLVER/cuBLAS (LAPACK
+on the CPU) through ``torch.linalg``.  The two
 VJPs are ``torch.autograd.Function``s; G^-1 of the ``quad_logdet``
 adjoint comes from ``torch.cholesky_inverse``, one matrix at a time, and
 the adjoint is formed in place in that buffer.
 
-Left out until the samplers: ``robust_cholesky`` (:633-662).  Left out
-for good, because they exist for a TPU whose triangular solve is slow
-(:163-176): ``blocked_cholesky`` / ``recursive_cholesky`` (:24-125),
+Left out for good, because they exist for a TPU whose triangular solve
+is slow (:163-176): ``blocked_cholesky`` / ``recursive_cholesky`` (:24-125),
 ``tri_inv``, ``sym_tri_product``, ``tri_lower_matmul``,
 ``_ginv_from_chol_f32`` and ``_GINV_MODE`` (:163-425), the float32
 ``tri_inv`` branch of ``_cholesky_vjp_core`` (:444-448), and the
@@ -208,3 +208,40 @@ def neg_inverse_from_chol(L):
     if L.ndim == 2:
         return -torch.cholesky_inverse(L, upper=False)
     return _each(neg_inverse_from_chol, L)
+
+
+# How each call of :func:`robust_cholesky` factorized its matrix: the
+# Cholesky factorization, or the eigendecomposition after it failed.
+ROBUST_ROUTES = {"cholesky": 0, "eigh": 0}
+
+
+def robust_cholesky(sigma):
+    """A factor T with T^T T = sigma (``gpyreg_tpu/ops/linalg.py:633-662``,
+    reference ``__robust_cholesky``, gaussian_process.py:2331-2355).
+
+    ``torch.linalg.cholesky_ex`` first; when it fails, the eigenvalue
+    fallback: the eigenvectors' signs fixed by each column's entry of
+    largest magnitude, eigenvalues below eps * max(w) * n dropped, and
+    zeros when a kept eigenvalue is negative.  Returns the upper factor
+    (the transposed Cholesky factor, or sqrt(w) U^T from the fallback).
+    Adds one to ``ROBUST_ROUTES`` under the route it took."""
+    Lc, info = torch.linalg.cholesky_ex(sigma)
+    if int(info) == 0:
+        ROBUST_ROUTES["cholesky"] += 1
+        T = Lc.mT
+    else:
+        ROBUST_ROUTES["eigh"] += 1
+        n = sigma.shape[0]
+        w, U = torch.linalg.eigh(0.5 * (sigma + sigma.mT))
+        cols = torch.arange(n, device=U.device)
+        signs = torch.sign(U[torch.argmax(torch.abs(U), dim=0), cols])
+        U = U * torch.where(signs == 0, torch.ones_like(signs), signs)[None, :]
+        tol = torch.abs(torch.finfo(sigma.dtype).eps * torch.max(w)) * n
+        keep = torch.abs(w) > tol
+        if bool(torch.any(keep & (w < 0))):
+            T = torch.zeros_like(sigma)
+        else:
+            w_safe = torch.where(keep, torch.clamp(w, min=0.0),
+                                 torch.zeros_like(w))
+            T = torch.sqrt(w_safe)[:, None] * U.mT
+    return T

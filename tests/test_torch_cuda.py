@@ -506,3 +506,60 @@ def test_gp_sample_on_card_launches_one_cross_column_per_posterior(cuda):
     m, _ = mu_s2(torch.tensor(samples[0]))
     mu, _ = g.predict(samples[:1])
     assert abs(float(m) - mu[0, 0]) <= 1e-4 * max(1.0, abs(mu[0, 0]))
+
+
+def _serving_gp(cuda, N=512, D=3, S=3, seed=7):
+    """A float32 card GP and the same GP in float64 on the CPU."""
+    from gpyreg_tpu_torch.convert import gp_from_arrays
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.1 * rng.normal(size=(N, 1))
+    hyp = np.zeros((S, D + 3))
+    hyp[:, D + 1] = np.log(0.1)
+    hyp += 0.05 * rng.normal(size=hyp.shape)
+    meta = {"D": D, "cov_kind": "se", "mean_kind": "const",
+            "noise_parameters": [1, 0, 0]}
+    g32 = gp_from_arrays({**meta, "dtype": "float32"}, X, y, None, hyp, cuda)
+    g64 = gp_from_arrays({**meta, "dtype": "float64"}, X, y, None, hyp, "cpu")
+    return g32, g64, rng
+
+
+def test_rank_one_update_on_card_matches_cpu(cuda):
+    """Two single-point updates of a float32 card GP: each launches one
+    N x 1 cross-covariance a posterior on the path without TMA and
+    nothing else (no rebuild), and the grown GP predicts as the port's
+    float64 CPU GP after the same updates."""
+    g32, g64, rng = _serving_gp(cuda)
+    S = g32.posteriors.size
+    for _ in range(2):
+        x = rng.normal(size=(1, 3))
+        y = np.sum(np.sin(x), axis=1, keepdims=True)
+        TK.reset_launches()
+        g32.update(X_new=x, y_new=y)
+        assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0),
+                               "cross_unaligned": S}
+        g64.update(X_new=x, y_new=y)
+    assert g32.posteriors[0].L.shape == (514, 514)
+    xs = rng.normal(size=(200, 3))
+    mu32, s232 = g32.predict(xs, separate_samples=True)
+    mu64, s264 = g64.predict(xs, separate_samples=True)
+    assert np.max(np.abs(mu32 - mu64)) < 1e-3
+    assert np.max(np.abs(s232 - s264)) < 1e-3
+
+
+def test_predict_full_on_card_launches_self_and_cross(cuda):
+    """``predict_full`` at M = 64 test points: one M x M self- and one
+    N x M cross-covariance a posterior, both on the TMA paths, and the
+    covariance agrees with the float64 CPU GP's."""
+    g32, g64, rng = _serving_gp(cuda)
+    S = g32.posteriors.size
+    xs = rng.normal(size=(64, 3))
+    TK.reset_launches()
+    mu32, c32 = g32.predict_full(xs)
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "self": S,
+                           "cross": S}
+    mu64, c64 = g64.predict_full(xs)
+    assert c32.shape == (64, 64, S)
+    assert np.max(np.abs(mu32 - mu64)) < 1e-3
+    assert np.max(np.abs(c32 - c64)) < 1e-3

@@ -10,12 +10,10 @@ densities are the GP's ``log_post_raw`` with a hyperprior (N = 48, D = 2)
 and a 3-D Gaussian with one dimension fixed by its bounds, with 3 and 10
 leapfrog steps.
 
-A leapfrog point outside the box coasts in the port (a zero gradient,
-no call of the density), as the JAX module's docstring states; the JAX
-code keeps the density's finite gradient there.  The Gaussian cases give
-the JAX chain a density that is flat outside the box, which makes it
-coast as well; ``test_a_trajectory_that_leaves_the_box_coasts`` pins
-the difference with the plain density.
+A leapfrog point outside the box is -inf with the density's own finite
+gradient in both packages (the JAX code's ``_masked_value_and_grad``), so
+trajectories that leave the box and turn back into it are the same
+chain too (``test_a_trajectory_that_leaves_the_box_equals_the_jax_chain``).
 """
 
 import jax
@@ -44,18 +42,6 @@ CASES = {
 }
 
 
-def _flat_outside(f, LB, UB):
-    """``f`` inside [LB, UB], 0 outside it: its gradient is 0 there."""
-    LB = np.broadcast_to(-np.inf if LB is None else LB, (3,))
-    UB = np.broadcast_to(np.inf if UB is None else UB, (3,))
-
-    def g(x):
-        inside = jnp.all((x >= LB) & (x <= UB))
-        return jnp.where(inside, f(x), 0.0)
-
-    return g
-
-
 class _Counted:
     def __init__(self, f):
         self.f, self.n = f, 0
@@ -70,7 +56,6 @@ def _run(case):
     prior = kw.pop("prior", False)
     fj, pj = gauss("jax", prior)
     ft, pt = gauss("torch", prior)
-    fj = _flat_outside(fj, kw.get("LB"), kw.get("UB"))
     rj, xj = JH.sample(fj, X0, jax.random.key(SEED), log_prior=pj, **kw)
     rt, xt = TH.sample(ft, X0, replay(SEED), log_prior=pt, **kw)
     return rt, xt, rj, xj
@@ -116,23 +101,21 @@ def test_one_call_a_leapfrog_point(runs):
     assert runs["gp_calls"] == 1 + (20 + 20) * 3
 
 
-def test_a_trajectory_that_leaves_the_box_coasts():
+def test_a_trajectory_that_leaves_the_box_equals_the_jax_chain():
     """A standard normal cut at -0.3: with long trajectories most leave
-    the box.  The JAX code's gradient outside the box turns them back and
-    the JAX chain accepts most of them; the port's coast on and end
-    outside, so it accepts none.  The port's chain is the JAX chain of
-    the density made flat outside the box."""
+    the box.  The density's gradient outside the box turns them back, and
+    the JAX chain accepts most of them; the port's chain is that chain."""
     LB, UB = np.array([-0.3, -0.3]), np.array([4.0, 4.0])
     kw = dict(n_samples=30, burn=0, widths=1.0, LB=LB, UB=UB, step_size=0.6,
               n_leapfrog=10, diagnostics=False)
     x0 = np.array([0.5, 0.5])
-    jf = lambda x: -0.5 * jnp.sum(x**2)
-    flat = lambda x: jnp.where(jnp.all((x >= LB) & (x <= UB)), jf(x), 0.0)
-    rj, _ = JH.sample(jf, x0, jax.random.key(3), **kw)
-    rf, _ = JH.sample(flat, x0, jax.random.key(3), **kw)
-    rt, _ = TH.sample(lambda x: -0.5 * torch.sum(x**2), x0, replay(3), **kw)
-    assert rj["accept_rate"] > 0.5 and rt["accept_rate"] == 0.0
-    check(rt, rf)
+    rj, xj = JH.sample(lambda x: -0.5 * jnp.sum(x**2), x0, jax.random.key(3),
+                       **kw)
+    rt, xt = TH.sample(lambda x: -0.5 * torch.sum(x**2), x0, replay(3), **kw)
+    assert rj["accept_rate"] > 0.5
+    check(rt, rj)
+    assert np.array_equal(moved(rt["samples"]), moved(rj["samples"]))
+    assert np.max(np.abs(xt - np.asarray(xj))) <= 1e-8
 
 
 def test_start_outside_the_bounds_raises_as_jax():

@@ -1,7 +1,9 @@
 """The port package stands without JAX: importing every module of
 gpyreg_tpu_torch (the ``inference`` subpackage included) in a fresh
 interpreter leaves ``jax``, ``optax`` and ``gpyreg_tpu`` out of
-``sys.modules``, and no file of the package names the ``jax`` module."""
+``sys.modules``, and no file of the package names the ``jax`` module.
+Nor does the import pull in ``matplotlib``, which only ``GP.plot``
+imports."""
 
 import os
 import re
@@ -25,13 +27,17 @@ def _package_files():
                 yield os.path.join(dirpath, name)
 
 
-def test_import_leaves_jax_out():
-    modules = sorted(
+def _modules():
+    return sorted(
         "gpyreg_tpu_torch."
         + os.path.relpath(p, PKG)[: -len(".py")].replace(os.sep, ".")
         for p in _package_files()
         if p.endswith(".py") and not p.endswith("__init__.py")
     )
+
+
+def test_import_leaves_jax_out():
+    modules = _modules()
     code = (
         "import importlib, sys\n"
         "import gpyreg_tpu_torch\n"
@@ -50,8 +56,26 @@ def test_import_leaves_jax_out():
     assert len(modules) >= 14
     for name in ("inference.map_optimize", "inference.fit_phases",
                  "inference.device_slice", "inference.sampling", "slice_sample",
-                 "inference.mala", "inference.hmc", "inference.ensemble_slice"):
+                 "inference.mala", "inference.hmc", "inference.ensemble_slice",
+                 "core.rank1", "formatting", "gaussian_process"):
         assert "gpyreg_tpu_torch." + name in modules
+
+
+def test_import_leaves_matplotlib_out():
+    code = (
+        "import importlib, sys\n"
+        "import gpyreg_tpu_torch\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'matplotlib' not in sys.modules\n"
+        "assert hasattr(gpyreg_tpu_torch.GP, 'plot')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
 
 
 def test_inference_subpackage_alone_leaves_jax_out():

@@ -17,11 +17,17 @@ hyperposterior sampling at its defaults on the same data, span
 around ``inference.sampling.run_sampling``) and its ``fit_mala_bench`` and
 ``fit_hmc_bench`` workloads (the MALA and HMC fits on the same data,
 spans ``fit_mala_4096`` and ``fit_hmc_4096`` with their chains' spans
-``fit_mala_4096_chain`` and ``fit_hmc_4096_chain``), and then:
+``fit_mala_4096_chain`` and ``fit_hmc_4096_chain``), and the rest of
+serving on a second config-5 GP (the calls of ``chip_smoke.py``'s phase
+9a: a single-point ``update``, span ``rank1_update``, after one that
+frees the build's shared allocation; ``predict_full`` at 1,024 points,
+``predict_full_1024``; ``quad`` over 64 measures with ``compute_var``,
+``quad_64``; one ``random_function`` draw at 1,024 points,
+``random_function_1024``; ``fmin`` with 3 starts, ``fmin``), and then:
 
 1. warms up with one ``update``, one ``predict`` and one batched NLML
-   value and gradient (``get_fns(...)["nlz_grad"]``) of each GP, and one
-   fit;
+   value and gradient (``get_fns(...)["nlz_grad"]``) of each GP, one
+   fit, and one call of each span of the rest of serving;
 2. runs one ``update``, one ``predict`` and one batched NLML value and
    gradient of each GP (spans ``nlml_grad_16384`` and ``nlml_grad_4096``)
    under ``torch.profiler`` (CPU and CUDA activities), each inside a
@@ -43,7 +49,8 @@ spans ``fit_mala_4096`` and ``fit_hmc_4096`` with their chains' spans
    tracing stretches the host's share of a span whose wall the host
    sets; this share leaves that cost out (device busy time is taken from
    step 2);
-4. runs each batched NLML value and gradient, and each fit, once more
+4. runs each batched NLML value and gradient, each fit, and the
+   ``rank1_update``, ``predict_full_1024`` and ``fmin`` spans once more
    under its own profiler run and reports each ``aten`` operator's self
    device time (``key_averages``: the kernels the operator launches itself, not
    those of the operators it calls, so no kernel is counted twice) as a
@@ -162,8 +169,9 @@ def main():
 
     from gpyreg_tpu_torch import gp as gp_mod
     from chip_smoke import (D, D_TR, FIT_BENCH, FIT_HMC_BENCH, FIT_MALA_BENCH,
-                            FIT_SAMPLE_BENCH, M_TEST, N, N_TR, SEED, _data,
-                            _fit_data, _se_gp, _train_data)
+                            FIT_SAMPLE_BENCH, M_PF, M_QUAD, M_TEST, N, N_TR,
+                            SEED, _data, _fit_data, _new_rows, _se_gp,
+                            _train_data)
     from gpyreg_tpu_torch.inference import sampling
 
     smi = subprocess.run(
@@ -185,6 +193,28 @@ def main():
     def nlml_grad(g, h):
         fns, args = g._obj_args()
         return fns["nlz_grad"](h, *args)
+
+    # The rest of serving on a GP of its own: each rank-1 update adds a
+    # row, which must not change the shapes of the spans above.
+    gp_r = _se_gp(D, np.float32)
+    gp_r.update(X_new=X, y_new=y, hyp=hyp, compute_posterior=True)
+    rows = zip(*_new_rows(16, SEED + 11))
+
+    def rank1():
+        x_new, y_new = next(rows)
+        gp_r.update(X_new=x_new[None, :], y_new=y_new[None, :])
+
+    x_pf = xs[:M_PF]
+    serve_fns = (
+        ("rank1_update", rank1),
+        ("predict_full_1024", lambda: gp_r.predict_full(x_pf)),
+        ("quad_64", lambda: gp_r.quad(xs[:M_QUAD], 0.5, compute_var=True,
+                                      separate_samples=True)),
+        ("random_function_1024", lambda: gp_r.random_function(x_pf)),
+        ("fmin", lambda: gp_r.fmin()),
+    )
+    for _, fn in serve_fns:
+        fn()
 
     fit_n, fit_d, fit_options = FIT_BENCH
     fit_X, fit_y = _fit_data(fit_n, fit_d, SEED + 3)
@@ -241,7 +271,7 @@ def main():
         ("predict", lambda: gp.predict(xs)),
         ("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
         ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
-    )
+    ) + serve_fns
     fit_spans = ((f"fit_{fit_n}", fit),) + tuple(
         (name, fit_sample(name)) for name in sampled)
     host, spans = {}, {}
@@ -302,6 +332,9 @@ def main():
     ops = {}
     for name, fn in (("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
                      ("nlml_grad_4096", lambda: nlml_grad(gp_tr, hyps_tr)),
+                     *(f for f in serve_fns
+                       if f[0] in ("rank1_update", "predict_full_1024",
+                                   "fmin")),
                      *fit_spans):
         ops[name] = _op_table(fn, acts)
         print(f"{name} by operator: wall {ops[name]['wall_ms']:.1f} ms")
