@@ -30,7 +30,15 @@ Phases, each of which raises on failure:
    16388 x 64, D = 10 (the TMA paths), and the one-column crosses of the
    4 rank-1 updates, (16384 + k) x 1 for k = 0..3 against the k-th new
    row, D = 10 (the path without TMA; k > 0 leaves a ragged last row
-   tile).  Every self build is
+   tile); output warping's predict_quantile cross 16384 x 256, D = 10;
+   and the matrix-free tier's shapes, D = 4: a CG / Lanczos panel 2048 x
+   65536 and cg_predict's cross 65536 x 512 (phase 23), the panels
+   2048 x 8192 and 128 x 8192 and the cross 8192 x 512 of phase 24 (TMA
+   paths) and the pivoted Cholesky's one-column cross 8192 x 1 (the path
+   without TMA); a panel's rows are data rows, at t2 = 0 against
+   themselves, where the plain norm expansion leaves a rounding residue
+   that the m1 profile turns into a 2e-3 error, so the panel and column
+   checks take held-out rows of the same shapes.  Every self build is
    bitwise symmetric with its diagonal
    exactly sf2 * profile(0); each launch is counted on its path's key;
    sf2 and alpha are device tensors, as the main paths pass them, and at
@@ -147,7 +155,54 @@ Phases, each of which raises on failure:
     iterations);
 22. fit_mala_config5: "mala" at N = 16384, D = 10, ``init_N`` 256,
     ``opts_N`` 2, ``n_samples`` 8, the chain cut to ``thin`` 1, ``burn`` 2
-    (130 steps, not the default 1,040).
+    (130 steps, not the default 1,040);
+23. cg_65536, the matrix-free tier at full width: the workload of
+    benchmarks/matrix_free_sampling.py, part A (N = 65,536, D = 4,
+    ARD-SE, constant mean and noise, float32, data from
+    ``np.random.default_rng(0)`` as that script makes it, 512 held-out
+    points), ``GP.fit`` with its CG_OPTS, ``"method": "auto"`` (the size
+    rule picks CG), ``n_samples`` 0 and ``cg_max_opt_iter`` cut from 40 to
+    10; then ``predict`` at the 512 points, then ``save``/``load`` and
+    ``predict`` again.  Prints ``design_s``, ``optimize_s``, the CG
+    iterations of every evaluation (``res.cg_iters``, with those at
+    ``cg_max_iter``), ms a matvec, and the predict's iterations and
+    relative residuals (``GP.cg_report``).  Checks: the fit took the CG
+    path; every launch of the fit and predict is a kernel-tile cross,
+    N / row_chunk = 32 a matvec (counted by wrapping
+    ``ops.iterative._panel_matvec``), plus one 65536 x 512 cross for the
+    predict; the peak allocated memory stays below 8 GiB (one
+    materialized 65,536² float32 K is 17.2 GB); finite moments of shape
+    (512, 1); the reloaded GP predicts the same values bit for bit;
+24. cg_fidelity_8192, the same workload at part B's N = 8,192: a CG fit
+    (``method`` "cg", the same cut) gives the MAP; ``cg_nlml`` at the MAP
+    and 4 perturbations of it (0.05 normal), at the settings of
+    tests/test_iterative.py:233-264 (row_chunk 128, 16 probes, 40
+    Lanczos steps), against the port's exact float64 NLML and gradient on
+    the card: the value within that test's 1%; the gradient within its
+    0.15 max(|g64|, 1), or, at a point where an entry exceeds that, within
+    the larger of it and 4 standard errors of the Hutchinson mean (from
+    the per-probe gradients) + 1e-2 max(|g64|, 1), with both printed;
+    ``cg_predict`` with and without ``cg_precond_rank`` 32 against the
+    exact float64 ``predict`` within 10 kappa max(residual, eps32)
+    relative, kappa(G) bounded by power iteration, with the iterations
+    and residuals printed; the fixed-probe chain (``n_samples`` 3,
+    ``thin`` 1, ``burn`` 1: 4 sweeps, cut; each density at the loose CG
+    budget of benchmarks/matrix_free_sampling.py's chain, tol 1e-2 and 48
+    iterations) from the MAP, each kept sample's value equal to the
+    recomputed frozen-probe log posterior within 1e-6 relative;
+25. outwarp: output warping at config 5's width (N = 16384, D = 10,
+    ARD-SE, float32, ``NegativePowerC1``, y = -|x|^2/2 + 0.1 noise, a log
+    density with a heavy lower tail): a MAP ``fit`` with fit_config5's
+    ``init_N`` 256 and ``opts_N`` 2 (both tiles on the path: self
+    launches at least the design rows plus the gradients, gradient-tile
+    launches at least the iterations), ``predict`` at 100,000 points
+    with ``return_lpd`` on held-out y (finite; one cross a chunk),
+    ``predict_quantile`` at 256 points (finite, increasing in q); the
+    float32 ``log_likelihood`` value and gradient against float64 on the
+    card within max(1e-3, 10 kappa eps32); then a slice-sampled warped
+    fit at fit_sample_bench's size (N = 4096, D = 8), its chain cut as
+    fit_sample_config5's (8 samples, burn 4, thin 1), with the checks of
+    the sampled fits.
 
 For each sampled fit it prints the phase seconds, ``n_evals`` (density
 calls), ms a density, densities a move (``n_evals`` over sweeps and free
@@ -236,6 +291,33 @@ GP_SAMPLE_N = (100, 50)
 # quad's measures, random_function's draws and predict_quantile's points.
 R1_ROWS = 4
 M_PF, M_QUAD, M_RF, N_RF, M_Q = 1024, 64, 64, 256, 256
+# The matrix-free tier: benchmarks/matrix_free_sampling.py's workload,
+# part A at N_CG rows and part B at N_CG_B, D = 4, its CG_OPTS with method
+# "auto" (the size rule picks CG at N_CG) and cg_max_opt_iter cut from 40
+# to CG_OPT_ITERS; M_CG held-out points.
+N_CG, D_CG, N_CG_B, M_CG = 65536, 4, 8192, 512
+CG_OPT_ITERS = 10
+CG_OPTS = {"method": "auto", "cg_row_chunk": 2048, "cg_n_probes": 8,
+           "cg_n_lanczos": 24, "cg_tol": 1e-4, "cg_max_iter": 300,
+           "cg_max_opt_iter": CG_OPT_ITERS, "cg_init_N": 8,
+           "cg_predict_tol": 1e-5, "tol_opt": 1e-5, "n_samples": 0}
+# The estimator's settings and bounds in tests/test_iterative.py:233-264
+# (its gradient bound held to the probes' standard error where that is the
+# larger, phase_cg_fidelity).
+CG_EST = {"row_chunk": 128, "n_probes": 16, "n_lanczos": 40}
+CG_EST_VALUE_TOL, CG_EST_GRAD_TOL = 0.01, 0.15
+CG_PEAK_BYTES = 8 * 2**30
+CG_PRECOND_RANK = 32
+# The fixed-probe chain at N_CG_B, cut to 3 kept samples after 1 burn-in
+# sweep (4 sweeps), each density at the loose CG budget of
+# benchmarks/matrix_free_sampling.py's chain (tol 1e-2, 48 iterations).
+CG_CHAIN = {"n_samples": 3, "thin": 1, "burn": 1, "cg_sample_tol": 1e-2,
+            "cg_sample_max_iter": 48}
+# Output warping: a MAP fit at config 5's width with fit_config5's design
+# and restarts, and a sampled fit at fit_sample_bench's size with its
+# chain cut as fit_sample_config5's (burn 4, thin 1, 8 samples).
+OW_MAP = {"n_samples": 0, "init_N": 256, "opts_N": 2}
+OW_SAMPLE = {"n_samples": 8, "burn": 4, "thin": 1}
 VJP_COVS = ("se", "m1", "m3", "m5", "rq", "se_iso", "m1_iso")
 # Kernel (direct differences) vs the plain norm-expansion version in
 # float32, the tolerance of tests/test_fused_kernel.py:46.
@@ -282,7 +364,7 @@ def _train_data(n, seed):
     return (a.astype(np.float64) for a in (X, y, hyps))
 
 
-def _se_gp(d, dtype, device=None):
+def _se_gp(d, dtype, device=None, outwarp=None):
     import gpyreg_tpu_torch as gt
 
     return gt.GP(
@@ -291,6 +373,7 @@ def _se_gp(d, dtype, device=None):
         gt.mean_functions.ConstantMean(),
         gt.noise_functions.GaussianNoise(constant_add=True),
         dtype=dtype,
+        outwarp=outwarp,
         device=DEV if device is None else device,
     )
 
@@ -412,7 +495,7 @@ def _one_launch(TK, key, fn):
     return out
 
 
-def phase_kernel_vs_plain(X, xs, X_tr):
+def phase_kernel_vs_plain(X, xs, X_tr, cg):
     from gpyreg_tpu_torch.ops import tile_kernels as TK
 
     chunk, tail = _chunks()
@@ -434,6 +517,16 @@ def phase_kernel_vs_plain(X, xs, X_tr):
     # refit_slicelite_bench's N = 4100 = 64 * 64 + 4.
     Xr = torch.cat([Xt, torch.as_tensor(np.random.default_rng(SEED + 6).normal(
         size=(REFIT_ROWS, Xt.shape[1])), dtype=torch.float32, device=DEV)])
+    # The matrix-free tier's shapes: its panels and crosses at N_CG and
+    # N_CG_B rows, D = 4, and the pivoted Cholesky's one-column cross.  A
+    # panel's rows are data rows, at t2 = 0 against themselves, where the
+    # plain version's rounding residue turns into a 2e-3 error under the
+    # m1 profile: the checks take held-out rows of the same shapes.
+    Xcg, Zcg, Xcb, Zcb = (torch.as_tensor(a, dtype=torch.float32, device=DEV)
+                          for a in (cg[0], cg[2], cg[3], cg[5]))
+    rc = CG_OPTS["cg_row_chunk"]
+    Pcg = torch.as_tensor(np.random.default_rng(SEED + 12).normal(
+        size=(rc, D_CG)), dtype=torch.float32, device=DEV)
     sf2, alpha = _device_params()
     results = {}
     for use, key, (A, B, zd, reps) in (
@@ -460,6 +553,19 @@ def phase_kernel_vs_plain(X, xs, X_tr):
         *((f"cross_r1_{k}", "cross_unaligned",
            (Xg[: N + k], Xg[N + k : N + k + 1], False, 20))
           for k in range(R1_ROWS)),
+        # Output warping's predict_quantile: 16384 x 256.
+        ("cross_256_ow", "cross", (Xs, Zp[:M_Q], False, 20)),
+        # The matrix-free tier: a CG / Lanczos panel and cg_predict's cross
+        # at N_CG; at N_CG_B the fit's and predict's panel, the
+        # estimator's panel (row_chunk 128) and cross, and the pivoted
+        # Cholesky's column (no TMA).
+        ("cg_panel", "cross", (Pcg, Xcg, False, 5)),
+        ("cg_cross", "cross", (Xcg, Zcg, False, 5)),
+        ("cg_panel_8192", "cross", (Pcg, Xcb, False, 20)),
+        ("cg_panel_128", "cross", (Pcg[:CG_EST["row_chunk"]], Xcb, False, 20)),
+        ("cg_cross_8192", "cross", (Xcb, Zcb, False, 20)),
+        ("cg_column_8192", "cross_unaligned",
+         (Xcb, Zcb[:1].contiguous(), False, 50)),
     ):
         for base in TK.PROFILES:
             K = _one_launch(TK, key, lambda: TK.kernel_cross(
@@ -1315,7 +1421,7 @@ def _check_samples(name, gp, X, y, options, hyp, sr, opt_res, launches, window,
     """The checks of the module docstring on one sampled fit whose chain
     made ``n_dens`` density calls."""
     d = X.shape[1]
-    hyp_N = d + 3
+    hyp_N = gp._hyp_N()
     s_N = options.get("n_samples", 10)
     LB = gp._f32_noise_floor(gp.lower_bounds, gp.upper_bounds, d + 1, options)
     if hyp.shape != (s_N, hyp_N):
@@ -1594,6 +1700,432 @@ def phase_gp_sample(gp5, data5, data_b, hyp_b, windows):
     return out
 
 
+def _cg_data():
+    """benchmarks/matrix_free_sampling.py's data from one generator: part
+    A's X, y and 512 held-out points at N_CG rows, then part B's X and y at
+    N_CG_B rows, then (beyond the script) 512 held-out points for part B."""
+    rng = np.random.default_rng(SEED)
+
+    def rows(n):
+        X = rng.normal(size=(n, D_CG))
+        return X, np.sum(np.sin(X), axis=1, keepdims=True) + 0.1 * rng.normal(
+            size=(n, 1))
+
+    X, y = rows(N_CG)
+    xs = rng.normal(size=(M_CG, D_CG))
+    Xb, yb = rows(N_CG_B)
+    xbs = rng.normal(size=(M_CG, D_CG))
+    return X, y, xs, Xb, yb, xbs
+
+
+def _count_matvecs():
+    """Wrap ``ops.iterative._panel_matvec`` so that each call adds one to
+    the returned counter; returns (counter, the unwrapped function)."""
+    from gpyreg_tpu_torch.ops import iterative as IT
+
+    plain, count = IT._panel_matvec, [0]
+
+    def counted(*a, **kw):
+        count[0] += 1
+        return plain(*a, **kw)
+
+    IT._panel_matvec = counted
+    return count, plain
+
+
+def _kappa_bound(X, h):
+    """(lambda_max(K) + sn2) / sn2 >= cond(K + sn2 I) for an ARD-SE row
+    ``h``, lambda_max from 50 steps of power iteration in float64 on the
+    card, K built a row panel at a time."""
+    from gpyreg_tpu_torch.ops.kernels import kernel_matrix
+
+    Xd = torch.as_tensor(X, device=DEV)
+    n, d = Xd.shape
+    hc = torch.as_tensor(h[: d + 1], device=DEV)
+    v = torch.ones((n, 1), dtype=Xd.dtype, device=DEV) / np.sqrt(n)
+    for _ in range(50):
+        w = torch.cat([kernel_matrix("se", hc, Xd[i : i + 4096], Z=Xd) @ v
+                       for i in range(0, n, 4096)])
+        lam = float(torch.linalg.norm(w))
+        v = w / lam
+    sn2 = float(np.exp(2 * h[d + 1]))
+    return (lam + sn2) / sn2
+
+
+def phase_cg_65536(data, mv):
+    """The matrix-free tier at full width (module docstring, phase 23)."""
+    import tempfile
+
+    import gpyreg_tpu_torch as gt
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    X, y, xs = data[:3]
+    count, plain_mv = mv
+    panels = N_CG // CG_OPTS["cg_row_chunk"]
+    gp = _se_gp(D_CG, np.float32)
+    hyp0 = np.concatenate([np.full(D_CG, 0.5), [0.0], [-1.0], [0.0]])
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    count[0] = 0
+    t0 = time.perf_counter()
+    hyp, res, sr = gp.fit(X, y, hyp0=hyp0, options=dict(CG_OPTS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_launches, fit_mv = dict(TK.LAUNCHES), count[0]
+    fit_peak = torch.cuda.max_memory_allocated()
+    tm = gp.fit_timings
+    iters = np.asarray(res.cg_iters)
+    max_iter = CG_OPTS["cg_max_iter"]
+    print(f"cg_65536: N={N_CG} D={D_CG} float32, fit(options={CG_OPTS}) "
+          f"(cg_max_opt_iter cut from 40 to {CG_OPT_ITERS}): {wall:.3f} s = "
+          f"design_s {tm['design_s']:.3f} ({CG_OPTS['cg_init_N']} rows) + "
+          f"optimize_s {tm['optimize_s']:.3f} ({res.nfev} evaluations, "
+          f"{res.nit} iterations, stop {res.message!r}) + posterior_s "
+          f"{tm['posterior_s']:.3f}; method {gp._infer_method}; peak device "
+          f"memory {fit_peak / 2**30:.3f} GiB; launches {fit_launches}, "
+          f"{fit_mv} matvecs")
+    print(f"  CG iterations per evaluation (res.cg_iters) {iters.tolist()}: "
+          f"mean {iters.mean():.1f}, {int(np.sum(iters >= max_iter))} at "
+          f"max_iter {max_iter}; MAP hyp {np.round(hyp[0], 4).tolist()}")
+    if not (gp._infer_method == "cg" and sr is None and hyp.shape == (1, D_CG + 3)
+            and all(p.matrix_free for p in gp.posteriors)):
+        raise AssertionError("cg_65536: method 'auto' did not fit by CG")
+    want = {**dict.fromkeys(TK.LAUNCHES, 0), "cross": panels * fit_mv}
+    if fit_launches != want or fit_mv == 0:
+        raise AssertionError(f"cg_65536: fit launches {fit_launches}, expected "
+                             f"{want}: every panel of every matvec a tile")
+
+    # One matvec of the fit's shape (1 + 8 probe columns) at the MAP.
+    spec = gp._spec()
+    Xd, yd, _ = gp._data()
+    hc = gp._tensor(hyp[0, : D_CG + 1])
+    V = torch.randn((N_CG, 1 + CG_OPTS["cg_n_probes"]), device=DEV)
+    sn2 = torch.full((N_CG,), float(np.exp(2 * hyp[0, D_CG + 1])), device=DEV)
+    with torch.no_grad():
+        mv_ms = _time_ms(lambda: plain_mv(spec, hc, Xd, V, sn2,
+                                          CG_OPTS["cg_row_chunk"]), 5)
+    print(f"  ms per matvec (the fit's, {panels} panels of "
+          f"{CG_OPTS['cg_row_chunk']}x{N_CG}, 9 columns): {mv_ms:.3f} ms")
+
+    TK.reset_launches()
+    count[0] = 0
+    t0 = time.perf_counter()
+    mu, s2 = gp.predict(xs)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    pred_launches, pred_mv = dict(TK.LAUNCHES), count[0]
+    peak = torch.cuda.max_memory_allocated()
+    rep = gp.cg_report[0]
+    rmse = float(np.sqrt(np.mean((mu - np.sum(np.sin(xs), axis=1,
+                                              keepdims=True)) ** 2)))
+    print(f"  predict at {M_CG} points: {t_pred:.3f} s, {pred_mv} matvecs, "
+          f"launches {pred_launches}; CG {rep} (max_iter {max_iter}"
+          f"{', REACHED' if max(rep['alpha_iters'], rep['var_iters']) >= max_iter else ''}"
+          f"); RMSE against the noise-free function {rmse:.4f} (noise sd 0.1); "
+          f"peak device memory over fit and predict {peak / 2**30:.3f} GiB "
+          f"(limit {CG_PEAK_BYTES / 2**30:.0f} GiB)")
+    if mu.shape != (M_CG, 1) or s2.shape != (M_CG, 1) or not (
+            np.all(np.isfinite(mu)) and np.all(np.isfinite(s2))):
+        raise AssertionError("cg_65536: predict is not finite of shape (512, 1)")
+    want = {**dict.fromkeys(TK.LAUNCHES, 0),
+            "cross": panels * pred_mv + -(-M_CG // gp._cg_options["test_chunk"])}
+    if pred_launches != want:
+        raise AssertionError(f"cg_65536: predict launches {pred_launches}, "
+                             f"expected {want}")
+    if not peak < CG_PEAK_BYTES:
+        raise AssertionError(f"cg_65536: peak {peak} bytes >= 8 GiB")
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "gpyreg_tpu_torch", "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "cg_65536.npz")
+        gp.save(path)
+        gp2 = gt.GP.load(path, device=DEV)
+    t0 = time.perf_counter()
+    mu2, s22 = gp2.predict(xs)
+    t_pred2 = time.perf_counter() - t0
+    same = np.array_equal(mu, mu2) and np.array_equal(s2, s22)
+    print(f"  save/load: reloaded {gp2._infer_method} GP predicts in "
+          f"{t_pred2:.3f} s, bit for bit the same: {same}")
+    if not same:
+        raise AssertionError("cg_65536: the reloaded GP predicts differently")
+    return {"fit_launches": fit_launches, "fit_matvecs": fit_mv,
+            "pred_launches": pred_launches, "pred_matvecs": pred_mv,
+            "timings": dict(tm), "cg_iters": iters.tolist(), "mv_ms": mv_ms,
+            "predict_s": t_pred, "peak": peak, "report": rep}
+
+
+def _hutchinson_se(spec, h, Xd, yd, sol, key):
+    """Per-entry standard error of the Hutchinson part of ``cg_nlml``'s
+    gradient, from its P probes: the gradient of 0.5 u_i^T A(h) z_i for
+    each probe i alone (``ops.iterative._surrogate_grad`` with alpha 0 and
+    one probe; u_i from the solution block ``sol``), std over i / sqrt(P).
+    The rows must fill whole panels (no padding)."""
+    from gpyreg_tpu_torch.core.model import mean_value, noise_variance
+    from gpyreg_tpu_torch.ops import iterative as IT
+
+    n, P = Xd.shape[0], CG_EST["n_probes"]
+    hyp = torch.as_tensor(h).to(dtype=Xd.dtype, device=Xd.device)
+    Z = IT.make_probes(key, (n, P), Xd.dtype, Xd.device)
+
+    def parts(hh):
+        hc, hn, hm = spec.split_hyp(hh)
+        sn2 = noise_variance(spec, hn, yd, None, Xd.dtype)
+        return (hc, torch.broadcast_to(torch.reshape(sn2, (-1,)), (n,)),
+                mean_value(spec, hm, Xd)[:, None])
+
+    zero = torch.zeros_like(sol[:, :1])
+    g = np.stack([
+        IT._surrogate_grad(spec, hyp, Xd, yd, None, parts, CG_EST["row_chunk"],
+                           zero, sol[:, 1 + i : 2 + i], Z[:, i : i + 1], 1)
+        for i in range(P)])
+    return np.std(g, axis=0, ddof=1) / np.sqrt(P)
+
+
+def phase_cg_fidelity(data, mv):
+    """The matrix-free tier against exact float64 at N_CG_B rows (module
+    docstring, phase 24)."""
+    from gpyreg_tpu_torch.ops import iterative as IT
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    Xb, yb, xbs = data[3:]
+    count = mv[0]
+    opts = {**CG_OPTS, "method": "cg"}
+    gp = _se_gp(D_CG, np.float32)
+    hyp0 = np.concatenate([np.full(D_CG, 0.3), [0.0], [-1.0], [0.0]])
+    np.random.seed(SEED)
+    TK.reset_launches()
+    count[0] = 0
+    t0 = time.perf_counter()
+    hyp, res, _ = gp.fit(Xb, yb, hyp0=hyp0, options=opts)
+    torch.cuda.synchronize()
+    print(f"cg_fidelity_8192: N={N_CG_B} D={D_CG} fit(method 'cg', "
+          f"cg_max_opt_iter {CG_OPT_ITERS}) {time.perf_counter() - t0:.3f} s, "
+          f"timings {gp.fit_timings}, CG iterations {res.cg_iters.tolist()}, "
+          f"launches {dict(TK.LAUNCHES)}, {count[0]} matvecs; MAP "
+          f"{np.round(hyp[0], 4).tolist()}")
+    fit_launches = dict(TK.LAUNCHES)
+    h_map = hyp[0]
+    spec = gp._spec()
+    Xd, yd, _ = gp._data()
+    gp64 = _se_gp(D_CG, np.float64)
+    gp64.update(X_new=Xb, y_new=yb, hyp=hyp, compute_posterior=False)
+    fns64, args64 = gp64._obj_args()
+
+    # The estimator at the MAP and 4 perturbations, at the settings of
+    # tests/test_iterative.py:233-264: the value within its 1% bound; the
+    # gradient within 0.15 max(|g64|, 1), or, where the probes' own
+    # sampling error is larger than that, within 4 standard errors of the
+    # Hutchinson mean (_hutchinson_se) plus 1e-2 max(|g64|, 1).
+    prng = np.random.default_rng(1)
+    points = [h_map] + [h_map + 0.05 * prng.normal(size=h_map.shape)
+                        for _ in range(4)]
+    TK.reset_launches()
+    count[0] = 0
+    worst_v, worst_g, est_iters = 0.0, [], []
+    t0 = time.perf_counter()
+    for i, h in enumerate(points):
+        est, g, sol, it = IT.cg_nlml(spec, h, Xd, yd, key=1, compute_grad=True,
+                                     return_sol=True, **CG_EST)
+        est_iters.append(it)
+        v64, g64 = fns64["nlz_grad"](h, *args64)
+        v64, g64 = float(v64), g64.cpu().numpy()
+        scale = max(1.0, float(np.max(np.abs(g64))))
+        err_v = abs(est - v64) / abs(v64)
+        err = np.abs(g - g64)
+        bound = np.full(err.shape, CG_EST_GRAD_TOL * scale)
+        se = np.full(err.shape, np.nan)
+        if np.any(err > bound):  # the probes' error, where it matters
+            se = _hutchinson_se(spec, h, Xd, yd, sol, key=1)
+            bound = np.maximum(bound, 4.0 * se + 1e-2 * scale)
+        worst_v = max(worst_v, err_v)
+        worst_g.append(float(np.max(err / bound)))
+        print(f"  cg_nlml point {i}: {it} CG iterations; estimate {est:.4f}, "
+              f"exact float64 {v64:.4f}: relative {err_v:.3e} (tol "
+              f"{CG_EST_VALUE_TOL}); gradient max|dg|/max(|g64|,1) "
+              f"{float(np.max(err)) / scale:.3e} (the test's bound "
+              f"{CG_EST_GRAD_TOL}); |dg| {np.round(err, 3).tolist()}, "
+              f"4 SE {np.round(4 * se, 3).tolist()}, g64 "
+              f"{np.round(g64, 3).tolist()}; |dg| / bound "
+              f"{worst_g[-1]:.3f}")
+    est_s = time.perf_counter() - t0
+    est_launches = dict(TK.LAUNCHES)
+    print(f"  estimator ({CG_EST}): {est_s:.3f} s for 5 values, gradients and "
+          f"standard errors with their float64 references; launches "
+          f"{est_launches}, {count[0]} matvecs")
+    if not (worst_v < CG_EST_VALUE_TOL and max(worst_g) <= 1.0):
+        raise AssertionError("cg_fidelity: cg_nlml outside the estimator's "
+                             "bounds")
+
+    # cg_predict against the exact float64 predict at the MAP.
+    gp64.update(hyp=hyp)
+    mu64, s264 = gp64._group_predict(xbs)
+    del gp64
+    kappa = _kappa_bound(Xb, h_map)
+    sf2 = float(np.exp(2 * h_map[D_CG]))
+    pred = {}
+    for rank in (0, CG_PRECOND_RANK):
+        TK.reset_launches()
+        count[0] = 0
+        t0 = time.perf_counter()
+        mu32, s232, info = IT.cg_predict(
+            spec, gp._tensor(h_map), Xd, yd, None, gp._tensor(xbs),
+            compute_var=True, tol=opts["cg_predict_tol"],
+            row_chunk=opts["cg_row_chunk"], max_iter=opts["cg_max_iter"],
+            precond_rank=rank)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        res_cg = max(info["alpha_rel_residual"], info["var_rel_residual"])
+        rel = 10.0 * kappa * max(res_cg, EPS32)
+        tol_mu = rel * max(1.0, float(np.max(np.abs(mu64))))
+        tol_s2 = rel * sf2
+        err_mu = float(np.max(np.abs(mu32 - mu64)))
+        err_s2 = float(np.max(np.abs(s232 - np.maximum(s264, 0.0))))
+        hit = max(info["alpha_iters"], info["var_iters"]) >= opts["cg_max_iter"]
+        print(f"  cg_predict precond_rank {rank}: {secs:.3f} s, alpha "
+              f"{info['alpha_iters']} iterations (relative residual "
+              f"{info['alpha_rel_residual']:.3e}), variance "
+              f"{info['var_iters']} iterations ({info['var_rel_residual']:.3e})"
+              f"{', max_iter REACHED' if hit else ''}; launches "
+              f"{dict(TK.LAUNCHES)}, {count[0]} matvecs; max|dmu| "
+              f"{err_mu:.3e} (tol {tol_mu:.3e}), max|ds2| {err_s2:.3e} (tol "
+              f"{tol_s2:.3e}); tol = 10 kappa max(residual, eps32), kappa(G) "
+              f"<= {kappa:.1f}")
+        if not (err_mu < tol_mu and err_s2 < tol_s2):
+            raise AssertionError(f"cg_fidelity: cg_predict (rank {rank}) "
+                                 f"disagrees with the exact float64 predict")
+        pred[rank] = {"launches": dict(TK.LAUNCHES), "matvecs": count[0],
+                      "s": secs, "info": {k: v for k, v in info.items()
+                                          if k != "alpha"}}
+
+    # The fixed-probe chain from the MAP, cut to CG_CHAIN's sweeps.
+    chain_opts = {**opts, **CG_CHAIN, "cg_init_N": 1, "cg_max_opt_iter": 1}
+    gp_c = _se_gp(D_CG, np.float32)
+    np.random.seed(SEED)
+    TK.reset_launches()
+    count[0] = 0
+    t0 = time.perf_counter()
+    hyp_c, _, sr = gp_c.fit(Xb, yb, hyp0=h_map, options=chain_opts)
+    torch.cuda.synchronize()
+    chain_launches, chain_mv = dict(TK.LAUNCHES), count[0]
+    log_f, _ = IT.cg_log_post_raw(
+        spec, CG_CHAIN["cg_sample_tol"], opts["cg_row_chunk"],
+        CG_CHAIN["cg_sample_max_iter"], opts["cg_n_probes"],
+        opts["cg_n_lanczos"], False, False)
+    worst = 0.0
+    for x, fv, lp in zip(sr["samples"], sr["f_vals"][:, 0], sr["log_priors"]):
+        ref = float(log_f(torch.as_tensor(x), Xd, yd, 0))
+        worst = max(worst, abs(fv + lp - ref) / max(1.0, abs(ref)))
+    print(f"  fixed-probe chain ({CG_CHAIN}, cut): {time.perf_counter() - t0:.3f} "
+          f"s, timings {gp_c.fit_timings}, n_evals {sr.get('n_evals')}, "
+          f"launches {chain_launches}, {chain_mv} matvecs; kept samples' "
+          f"values against the recomputed frozen-probe log posterior: max "
+          f"relative difference {worst:.3e}")
+    if hyp_c.shape != (CG_CHAIN["n_samples"], D_CG + 3) or not worst <= 1e-6:
+        raise AssertionError("cg_fidelity: the chain's values are not the "
+                             "frozen-probe log posterior")
+    return {"fit_launches": fit_launches, "est_launches": est_launches,
+            "pred": pred, "chain_launches": chain_launches,
+            "est_worst": (worst_v, max(worst_g)), "est_iters": est_iters}
+
+
+def _ow_data(n, d, m, seed):
+    """A log density with a heavy lower tail, -|x|^2 / 2 plus noise, at n
+    rows and at m held-out points."""
+    rng = np.random.default_rng(seed)
+
+    def rows(k):
+        X = rng.normal(size=(k, d))
+        return X, -0.5 * np.sum(X**2, axis=1, keepdims=True) + 0.1 * rng.normal(
+            size=(k, 1))
+
+    return rows(n) + rows(m)
+
+
+def phase_outwarp(windows):
+    """Output warping at config 5's width and its sampled fit (module
+    docstring, phase 25)."""
+    import gpyreg_tpu_torch as gt
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    X, y, xs, ys = _ow_data(N, D, M_TEST, SEED + 8)
+    gp = _se_gp(D, np.float32, outwarp=gt.outwarp_functions.NegativePowerC1())
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    hyp, res, _ = gp.fit(X, y, options=dict(OW_MAP))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fit_launches = dict(TK.LAUNCHES)
+    nit = sum(r.nit for r in gp.fit_report["restarts"])
+    hyp_N = gp._hyp_N()
+    print(f"outwarp_config5: N={N} D={D} float32, NegativePowerC1, y in "
+          f"[{y.min():.2f}, {y.max():.2f}], fit({OW_MAP}): {wall:.3f} s, "
+          f"timings {gp.fit_timings}, restarts "
+          f"{[(r.nit, round(r.fun, 4), r.stop) for r in gp.fit_report['restarts']]}"
+          f"; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"launches {fit_launches}; MAP {np.round(hyp[0], 4).tolist()} "
+          f"(the last two: the warp's y0 and log k)")
+    if not (hyp.shape == (1, hyp_N) and fit_launches["vjp"] >= nit
+            and fit_launches["self"] >= OW_MAP["init_N"] + fit_launches["vjp"]
+            and fit_launches["cross"] == 0
+            and not any(v for k, v in fit_launches.items()
+                        if k.endswith("_unaligned"))):
+        raise AssertionError(f"outwarp_config5: fit launches {fit_launches} "
+                             f"for {nit} iterations")
+
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    mu, s2, lpd = gp.predict(xs, ys, return_lpd=True)
+    t_pred = time.perf_counter() - t0
+    pred_launches = dict(TK.LAUNCHES)
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    q = gp.predict_quantile([0.1, 0.5, 0.9], xs[:M_Q])
+    t_q = time.perf_counter() - t0
+    q_launches = dict(TK.LAUNCHES)
+    print(f"  predict at {M_TEST} points with return_lpd: {t_pred:.3f} s = "
+          f"{M_TEST / t_pred:.1f} pts/s, mean lpd {float(np.mean(lpd)):.4f}, "
+          f"launches {pred_launches}; predict_quantile at {M_Q} points "
+          f"{t_q * 1e3:.1f} ms, launches {q_launches}")
+    n_chunks = -(-M_TEST // gp._predict_chunk(N, M_TEST))
+    if not (all(np.all(np.isfinite(a)) for a in (mu, s2, lpd))
+            and mu.shape == s2.shape == lpd.shape == (M_TEST, 1)
+            and q.shape == (M_Q, 3) and np.all(np.isfinite(q))
+            and np.all(np.diff(q, axis=1) > 0)
+            and pred_launches == {**dict.fromkeys(TK.LAUNCHES, 0),
+                                  "cross": n_chunks}
+            and q_launches == {**dict.fromkeys(TK.LAUNCHES, 0), "cross": 1}):
+        raise AssertionError("outwarp_config5: predict or predict_quantile")
+
+    # log_likelihood with its gradient, float32 against float64 on the card.
+    gp64 = _se_gp(D, np.float64, outwarp=gt.outwarp_functions.NegativePowerC1())
+    gp64.update(X_new=X, y_new=y, hyp=hyp, compute_posterior=False)
+    v64, g64 = gp64.log_likelihood(hyp[0], compute_grad=True)
+    del gp64
+    v32, g32 = gp.log_likelihood(hyp[0], compute_grad=True)
+    kappa = _kappa_bound(X, hyp[0])
+    print(f"  log_likelihood float32 vs float64 on the card at the MAP "
+          f"(warp gradient {np.round(g32[-2:], 4).tolist()}):")
+    _grad_check("outwarp", torch.tensor([v32]), torch.tensor(g32[None]),
+                torch.tensor([v64]), torch.tensor(g64[None]), [kappa])
+    torch.cuda.empty_cache()
+
+    samp = phase_fit_sample(
+        "outwarp_fit_sample_bench", N_TR, D_TR, dict(OW_SAMPLE), windows,
+        gp=_se_gp(D_TR, np.float32,
+                  outwarp=gt.outwarp_functions.NegativePowerC1()),
+        data=_ow_data(N_TR, D_TR, 0, SEED + 9)[:2])[2]
+    return {"fit_launches": fit_launches, "pred_launches": pred_launches,
+            "q_launches": q_launches, "sample": samp, "timings": gp.fit_timings,
+            "predict_s": t_pred}
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     return {
         "name": name,
@@ -1737,6 +2269,69 @@ def _kernels_line(kern, vjp, serve_launches, bench, cfg5, fit_b, fit_5, samp,
     return out
 
 
+def _kernels_line_slice8(kern, vjp, cg, fid, ow):
+    """The kernels line's entries for the matrix-free tier and output
+    warping: each new kernel-1 shape with the launches each use made."""
+    from gpyreg_tpu_torch.ops.tile_kernels import PROFILES
+
+    tile = ("gpyreg_tpu_torch/csrc/kernel_tile.cu",
+            "gpyreg_tpu/ops/pallas_kernels.py:99")
+    vjpk = ("gpyreg_tpu_torch/csrc/kernel_vjp.cu",
+            "gpyreg_tpu/ops/pallas_kernels.py:184")
+    panels = N_CG // CG_OPTS["cg_row_chunk"]
+    panels_b = N_CG_B // CG_OPTS["cg_row_chunk"]
+    pred_panels = panels * cg["pred_matvecs"]
+    fid_pred_panels = sum(panels_b * p["matvecs"] for p in fid["pred"].values())
+    out = []
+    for use, key, launches, path in (
+        ("cg_65536 fit panel", "cg_panel", cg["fit_launches"]["cross"], "cross"),
+        ("cg_65536 predict panel", "cg_panel", pred_panels, "cross"),
+        ("cg_65536 predict cross", "cg_cross",
+         cg["pred_launches"]["cross"] - pred_panels, "cross"),
+        ("cg_fidelity_8192 fit panel", "cg_panel_8192",
+         fid["fit_launches"]["cross"], "cross"),
+        ("cg_fidelity_8192 estimator panel", "cg_panel_128",
+         fid["est_launches"]["cross"], "cross"),
+        ("cg_fidelity_8192 cg_predict panel", "cg_panel_8192", fid_pred_panels,
+         "cross"),
+        ("cg_fidelity_8192 cg_predict cross", "cg_cross_8192",
+         sum(p["launches"]["cross"] for p in fid["pred"].values())
+         - fid_pred_panels, "cross"),
+        ("cg_fidelity_8192 pivoted Cholesky column", "cg_column_8192",
+         fid["pred"][CG_PRECOND_RANK]["launches"]["cross_unaligned"],
+         "cross_unaligned"),
+        ("cg_fidelity_8192 chain panel", "cg_panel_8192",
+         fid["chain_launches"]["cross"], "cross"),
+        ("outwarp_config5 fit self", "self", ow["fit_launches"]["self"], "self"),
+        ("outwarp_config5 predict cross", "cross", ow["pred_launches"]["cross"],
+         "cross"),
+        ("outwarp_config5 predict_quantile cross", "cross_256_ow",
+         ow["q_launches"]["cross"], "cross"),
+        ("outwarp_fit_sample_bench self", "self_train",
+         ow["sample"]["launches"]["self"], "self"),
+    ):
+        err, ms, plain_ms, n, m, d = kern[(key, "se")]
+        e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile, launches,
+                   err, ms, plain_ms, _tile_bound(n, m, d, self_cov=path == "self"))
+        e["max_abs_err_all_profiles"] = max(kern[(key, b)][0] for b in PROFILES)
+        e["dispatch"] = "unaligned" if path.endswith("_unaligned") else "tma"
+        if use == "outwarp_config5 predict cross":
+            tail = kern[("cross_tail", "se")]
+            e["tail_ms"], e["tail_plain_ms"] = tail[1], tail[2]
+            e["tail_bound_ms"] = _tile_bound(tail[3], tail[4], tail[5])[0]
+        out.append(e)
+    for use, label, launches in (
+        ("outwarp_config5 fit", "config5", ow["fit_launches"]["vjp"]),
+        ("outwarp_fit_sample_bench", "bench", ow["sample"]["launches"]["vjp"]),
+    ):
+        err, rel, ms, plain_ms, n, d = vjp[(label, "se")]
+        e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk, launches, err,
+                   ms, plain_ms, _vjp_bound(n, d, False))
+        e["max_rel_err_all_profiles"] = max(vjp[(label, c)][1] for c in VJP_COVS)
+        out.append(e)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
@@ -1748,7 +2343,8 @@ def main():
     phase_build()
     X, y, xs, hyp = _data(N, M_TEST, SEED)
     X_tr, y_tr, hyps_tr = _train_data(N_TR, SEED)
-    kern = phase_kernel_vs_plain(X, xs, X_tr)
+    cg_data = _cg_data()
+    kern = phase_kernel_vs_plain(X, xs, X_tr, cg_data)
     vjp = phase_vjp_vs_plain((("bench", X_tr, y_tr, hyps_tr[0]),
                               ("bench_unaligned", X_tr[:N_TR - 1],
                                y_tr[:N_TR - 1], hyps_tr[0]),
@@ -1794,9 +2390,18 @@ def main():
         samp[key] = phase_fit_mala_hmc_ensemble(*spec, windows,
                                                 grad_check=grad_check)
 
+    torch.cuda.empty_cache()
+    mv = _count_matvecs()
+    cg = phase_cg_65536(cg_data, mv)
+    torch.cuda.empty_cache()
+    fid = phase_cg_fidelity(cg_data, mv)
+    torch.cuda.empty_cache()
+    ow = phase_outwarp(windows)
+
     print(json.dumps({"kernels": _kernels_line(kern, vjp, serve_launches,
                                                 bench, cfg5, fit_b, fit_5,
-                                                samp, rest)}))
+                                                samp, rest)
+                      + _kernels_line_slice8(kern, vjp, cg, fid, ow)}))
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(f"card (name, power limit): {smi}")
     print(json.dumps({

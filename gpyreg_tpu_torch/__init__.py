@@ -18,8 +18,11 @@ hyperposterior (slicesample, covsample, chains, the slicelite warm
 refit, the host ``SliceSampler``, MALA, HMC and ensemble slice
 sampling), and the rest of serving: the rank-1 ``update``,
 ``predict_full``, ``quad``, ``random_function``, ``predict_quantile``,
-``fmin``, ``sample`` and ``plot``.  ``ROADMAP.md`` lists the modules
-still to come (output warping, the matrix-free tier, the mesh tier).
+``fmin``, ``sample`` and ``plot``; output warping
+(``outwarp_functions``, ``GP(..., outwarp=...)``) and the matrix-free
+tier (``ops.iterative``, ``GP.fit(options={"method": "cg"})`` and
+``"auto"``, whose CG panels the kernel tile builds).  ``ROADMAP.md``
+lists what is still to come (the mesh tier).
 """
 
 from . import covariance_functions
@@ -27,6 +30,7 @@ from . import f_min_fill
 from . import isotropic_covariance_functions
 from . import mean_functions
 from . import noise_functions
+from . import outwarp_functions
 from . import slice_sample
 from .gp import GP, Posterior
 
@@ -39,6 +43,7 @@ __all__ = [
     "isotropic_covariance_functions",
     "mean_functions",
     "noise_functions",
+    "outwarp_functions",
     "f_min_fill",
     "slice_sample",
 ]

@@ -16,6 +16,7 @@ from . import covariance_functions as cf
 from . import isotropic_covariance_functions as icf
 from . import mean_functions as mf
 from . import noise_functions as nf
+from . import outwarp_functions as owf
 from .gp import GP
 
 _MEANS = {
@@ -50,6 +51,23 @@ def mean_from_kind(kind: str):
     return _MEANS[kind]()
 
 
+_OUTWARPS = {
+    "negpow": owf.NegativePower,
+    "negpowc1": owf.NegativePowerC1,
+    "negscaledpow": owf.NegativeScaledPower,
+}
+
+
+def outwarp_from_kind(kind: str):
+    """The output warp for ``save``'s ``outwarp_kind``; None for ""
+    (``gpyreg_tpu/gp.py:2600-2608``)."""
+    if not kind:
+        return None
+    if kind not in _OUTWARPS:
+        raise ValueError(f"Unknown output warping kind {kind}")
+    return _OUTWARPS[kind]()
+
+
 def noise_from_parameters(p):
     """The noise object for a ``GaussianNoise.parameters`` flag vector."""
     p = np.asarray(p)
@@ -66,9 +84,12 @@ def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True,
     """A port GP from numpy arrays, on ``device`` (the card by default).
 
     ``meta`` holds ``D``, ``cov_kind``, ``mean_kind``,
-    ``noise_parameters`` and ``dtype``, and optionally ``fast_predict``,
-    ``pallas_predict`` and ``no_prior`` (-1 for None, as ``save``
-    writes it).  ``X`` (N, D), ``y`` (N, 1) and ``s2`` (N, 1) may be
+    ``noise_parameters`` and ``dtype``, and optionally ``outwarp_kind``
+    ("" for none), ``fast_predict``, ``pallas_predict``, ``no_prior`` (-1
+    for None, as ``save`` writes it), ``infer_method`` (1 for a GP
+    fitted with ``method="cg"``: its posteriors are matrix-free) and that
+    GP's CG serving options as ``cg_<option>`` (the port's ``save``
+    writes them; without them ``cg_predict``'s defaults serve).  ``X`` (N, D), ``y`` (N, 1) and ``s2`` (N, 1) may be
     None; ``hyp`` (S, hyp_N) or None.  ``bounds`` is a pair of (hyp_N,)
     arrays (lower, upper) and ``hyper_priors`` the prior table (keys mu,
     sigma, df, a, b, each (hyp_N,)); the normalization constants are
@@ -82,6 +103,7 @@ def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True,
         mean=mean_from_kind(str(meta["mean_kind"])),
         noise=noise_from_parameters(meta["noise_parameters"]),
         dtype=np.dtype(str(meta["dtype"])),
+        outwarp=outwarp_from_kind(str(meta.get("outwarp_kind", ""))),
         fast_predict=bool(int(meta.get("fast_predict", 0))),
         pallas_predict=bool(int(meta.get("pallas_predict", 0))),
         device=device,
@@ -102,6 +124,12 @@ def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True,
         gp.no_prior = None if no_prior == -1 else bool(no_prior)
     if gp.no_prior is not None:
         gp._GP__recompute_normalization_constants()
+    if int(meta.get("infer_method", 0)):
+        gp._infer_method = "cg"
+        gp._cg_options = {
+            k[len("cg_"):]: (float if k == "cg_tol" else int)(v)
+            for k, v in meta.items() if k.startswith("cg_")
+        }
     gp._invalidate()
     if hyp is not None:
         gp.update(

@@ -7,9 +7,9 @@ warping).  The hyperparameter vector layout matches the reference
 exactly: cov | noise | mean | outwarp (gaussian_process.py:174,
 matlab/gplite/private/gplite_core.m:16).
 
-The ``outwarp`` field is kept so the layout and the hyperparameter count
-stay those of the JAX package; evaluating a warped model waits for the
-output-warping slice (``core/nlml.assemble`` raises on it).
+The ``outwarp`` field names an output warp of
+``outwarp_functions.OUTWARP_KINDS``; its hyperparameter count comes from
+that module's ``outwarp_hyp_count``.
 """
 
 from dataclasses import dataclass
@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.kernels import cov_hyp_count, kernel_matrix
+from ..outwarp_functions import OUTWARP_KINDS, outwarp_hyp_count
 
 COV_KINDS = (
     "se",
@@ -41,10 +42,6 @@ MEAN_KINDS = (
     "se_mean",
     "negse_mean",
 )
-# Output-warping kinds and their hyperparameter counts
-# (gpyreg_tpu/outwarp_functions.py:31-35).
-OUTWARP_HYP_COUNTS = {"negpow": 2, "negpowc1": 2, "negscaledpow": 3}
-
 # User-supplied mean functions, keyed by name so the ModelSpec stays a
 # frozen string-keyed description: spec.mean == "custom:<name>"
 # dispatches here.  Entries are (value_fn, hyp_count_fn) with
@@ -92,7 +89,7 @@ class ModelSpec:
     noise_constant: bool  # constant_add
     noise_user: int  # 0: none, 1: add s2 as-is, 2: scaled by exp(hyp)
     noise_rectified: bool  # rectified-linear output-dependent noise
-    outwarp: str = None  # None or an OUTWARP_HYP_COUNTS key
+    outwarp: str = None  # None or an OUTWARP_KINDS entry
 
     def __post_init__(self):
         if self.cov not in COV_KINDS:
@@ -101,7 +98,7 @@ class ModelSpec:
             custom_mean_entry(self.mean)  # raises if unregistered
         elif self.mean not in MEAN_KINDS:
             raise ValueError(f"Unknown mean kind {self.mean}")
-        if self.outwarp is not None and self.outwarp not in OUTWARP_HYP_COUNTS:
+        if self.outwarp is not None and self.outwarp not in OUTWARP_KINDS:
             raise ValueError(f"Unknown output warping kind {self.outwarp}")
 
     @property
@@ -135,7 +132,7 @@ class ModelSpec:
 
     @property
     def outwarp_N(self) -> int:
-        return 0 if self.outwarp is None else OUTWARP_HYP_COUNTS[self.outwarp]
+        return 0 if self.outwarp is None else outwarp_hyp_count(self.outwarp)
 
     @property
     def hyp_N(self) -> int:

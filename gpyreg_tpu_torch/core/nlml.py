@@ -21,9 +21,14 @@ ctypes launches.  ``hyp`` is cast to the data dtype (:56), or PyTorch
 would promote float32 data with float64 hyperparameters to float64;
 gradients come back in float64, the dtype of the host's vectors.
 
-Left out until later slices: output warping (:65-80; ``assemble`` raises
-on a warped spec).  ``get_fns``' jitted bundle becomes a plain dict of
-eager functions under the same keys; its ``lru_cache`` is not needed.
+With output warping (``spec.outwarp``, :65-80) the GP models g(y):
+``assemble`` warps ``y``, hands the noise function the original ``y``
+with the user variance ``s2 * g'(y)^2``, and returns the log-Jacobian
+``sum(log |g'(y)|)``, which every NLML here subtracts (gplite_core.m:115).
+Its gradient in the warp hyperparameters comes from autograd; the
+kernel's still goes through ``KernelSelfFused``.  ``get_fns``' jitted
+bundle becomes a plain dict of eager functions under the same keys; its
+``lru_cache`` is not needed.
 """
 
 import math
@@ -32,6 +37,7 @@ import torch
 
 from .._config import CHOL_MAX_TRIES
 from ..ops.linalg import chol_solve, jittered_cholesky, quad_logdet
+from ..outwarp_functions import warp_value_and_dt
 from .model import ModelSpec, cov_matrix, mean_value, noise_variance
 from .priors import log_prior
 
@@ -54,30 +60,41 @@ def _cov_masked(spec, hyp_cov, X, n_real):
 
 def assemble(spec: ModelSpec, hyp, X, y, s2, n_real=None):
     """Model assembly for ONE hyperparameter vector: returns
-    ``(K, sn2_vec, r, m)`` with the padding masks applied.
+    ``(K, sn2_vec, r, m, log_jacobian)`` with the padding masks applied.
 
     ``n_real`` (int or None): rows >= n_real are padding.  Masking makes
     G block-diagonal ([[G_real, 0], [0, mult*I]]) with zero padded
     residual, so the real block's factor is exactly the unpadded one.
+    The padded rows are selected with ``where``, never multiplied by the
+    mask: at extreme warp hyperparameters a padded row's warped value or
+    log-slope can be infinite, and inf * 0 is NaN.
     """
-    if spec.outwarp is not None:
-        raise NotImplementedError(
-            "Output warping is not ported yet (outwarp_functions)."
-        )
     N = X.shape[0]
     hyp = torch.as_tensor(hyp).to(dtype=X.dtype, device=X.device)
     hyp_cov, hyp_noise, hyp_mean = spec.split_hyp(hyp)
     mask = _mask(N, n_real, X.device)
 
-    sn2 = noise_variance(spec, hyp_noise, y, s2, X.dtype)
+    log_jacobian = torch.zeros((), dtype=X.dtype, device=X.device)
+    y_eff, s2_eff = y, s2
+    if spec.outwarp is not None:
+        y_eff, dwarp = warp_value_and_dt(spec.outwarp, spec.outwarp_hyp(hyp), y)
+        if s2 is not None:
+            s2_eff = s2 * dwarp**2
+        log_jac_terms = torch.log(torch.abs(dwarp))
+        if mask is not None:
+            log_jac_terms = torch.where(mask[:, None], log_jac_terms,
+                                        torch.zeros_like(log_jac_terms))
+        log_jacobian = torch.sum(log_jac_terms)
+
+    sn2 = noise_variance(spec, hyp_noise, y, s2_eff, X.dtype)
     m = mean_value(spec, hyp_mean, X)[:, None]
     K = _cov_masked(spec, hyp_cov, X, n_real)
     sn2_vec = torch.broadcast_to(torch.reshape(sn2, (-1,)), (N,))
-    r = y - m
+    r = y_eff - m
     if mask is not None:
         sn2_vec = torch.where(mask, sn2_vec, torch.ones_like(sn2_vec))
         r = torch.where(mask[:, None], r, torch.zeros_like(r))
-    return K, sn2_vec, r, m
+    return K, sn2_vec, r, m, log_jacobian
 
 
 def _assemble_batch(spec, hyps, X, y, s2, n_real):
@@ -88,11 +105,13 @@ def _assemble_batch(spec, hyps, X, y, s2, n_real):
     sn2 = torch.empty((S, N), dtype=X.dtype, device=X.device)
     r = torch.empty((S, N, 1), dtype=X.dtype, device=X.device)
     m = torch.empty((S, N, 1), dtype=X.dtype, device=X.device)
+    log_jac = torch.empty((S,), dtype=X.dtype, device=X.device)
     for s in range(S):
-        Ks, sn2[s], r[s], m[s] = assemble(spec, hyps[s], X, y, s2, n_real)
+        Ks, sn2[s], r[s], m[s], log_jac[s] = assemble(
+            spec, hyps[s], X, y, s2, n_real)
         K[s] = Ks
         del Ks
-    return K, sn2, r, m
+    return K, sn2, r, m, log_jac
 
 
 def _batched(hyp, X):
@@ -108,14 +127,14 @@ def _each_lane(fn, hyp, X):
 
 
 def gp_parts(spec: ModelSpec, hyp, X, y, s2, n_real=None):
-    """(sn2_vec, m, L, mult, r, alpha) with L = chol(G) lower, each with
-    a leading sample axis when ``hyp`` is a stack."""
+    """(sn2_vec, m, L, mult, r, alpha, log_jacobian) with L = chol(G)
+    lower, each with a leading sample axis when ``hyp`` is a stack."""
     hyps, single = _batched(hyp, X)
-    K, sn2_vec, r, m = _assemble_batch(spec, hyps, X, y, s2, n_real)
+    K, sn2_vec, r, m, log_jac = _assemble_batch(spec, hyps, X, y, s2, n_real)
     L, mult = jittered_cholesky(K, sn2_vec)
     del K
     alpha = chol_solve(L, r)
-    out = (sn2_vec, m, L, mult, r, alpha)
+    out = (sn2_vec, m, L, mult, r, alpha, log_jac)
     return tuple(t[0] for t in out) if single else out
 
 
@@ -141,8 +160,8 @@ def nlz(spec: ModelSpec, hyp, X, y, s2, n_real=None):
     N = X.shape[0]
 
     def one(h):
-        K, sn2_vec, r, _ = assemble(spec, h, X, y, s2, n_real)
-        return _finish(*quad_logdet(K, sn2_vec, r), N, n_real)
+        K, sn2_vec, r, _, log_jac = assemble(spec, h, X, y, s2, n_real)
+        return _finish(*quad_logdet(K, sn2_vec, r), N, n_real) - log_jac
 
     return _each_lane(one, hyp, X)
 
@@ -157,7 +176,7 @@ def nlz_chain(spec: ModelSpec, hyp, X, y, s2, n_real=None):
 
     def one(h):
         hyp_cov = spec.split_hyp(h)[0]
-        K, sn2_vec, r, _ = assemble(spec, h, X, y, s2, n_real)
+        K, sn2_vec, r, _, log_jac = assemble(spec, h, X, y, s2, n_real)
         mult = torch.ones((), dtype=X.dtype, device=X.device)
         K.diagonal().add_(sn2_vec)
         L, info = torch.linalg.cholesky_ex(K)
@@ -176,7 +195,7 @@ def nlz_chain(spec: ModelSpec, hyp, X, y, s2, n_real=None):
         alpha = chol_solve(L, r)
         quad = torch.sum(r * alpha)
         half = torch.sum(torch.log(L.diagonal()))
-        return _finish(quad, half, mult, N, n_real)
+        return _finish(quad, half, mult, N, n_real) - log_jac
 
     with torch.no_grad():
         return _each_lane(one, hyp, X)
@@ -190,14 +209,14 @@ def nlz_design(spec: ModelSpec, hyp, X, y, s2, n_real=None):
     N = X.shape[0]
 
     def one(h):
-        K, sn2_vec, r, _ = assemble(spec, h, X, y, s2, n_real)
+        K, sn2_vec, r, _, log_jac = assemble(spec, h, X, y, s2, n_real)
         K.diagonal().add_(sn2_vec)
         L, info = torch.linalg.cholesky_ex(K)
         del K
         alpha = chol_solve(L, r)
         n_eff = N if n_real is None else n_real
         val = (0.5 * torch.sum(r * alpha) + torch.sum(torch.log(L.diagonal()))
-               + 0.5 * n_eff * _LOG_2PI)
+               + 0.5 * n_eff * _LOG_2PI - log_jac)
         bad = (info != 0) | torch.isnan(val)
         return torch.where(bad, torch.full_like(val, math.inf), val)
 
@@ -233,7 +252,7 @@ def posterior_factors(spec: ModelSpec, hyp, X, y, s2, n_real=None):
     negative inverse) from the ``sn2_min >= 1e-6`` flag (reference
     gaussian_process.py:2404-2448).  With padding, sn2_min is taken over
     the real rows only."""
-    sn2_vec, _, L, mult, _, alpha = gp_parts(spec, hyp, X, y, s2, n_real)
+    sn2_vec, _, L, mult, _, alpha, _ = gp_parts(spec, hyp, X, y, s2, n_real)
     mask = _mask(X.shape[0], n_real, X.device)
     if mask is not None:
         big = torch.finfo(X.dtype).max

@@ -29,15 +29,23 @@ The rest of serving (``gpyreg_tpu/gp.py:1075-1236``, :2120-2162,
 ``random_function``, ``predict_quantile``, ``fmin``, ``plot`` and
 ``__repr__``/``__str__``.
 
+Output warping (``outwarp``, :261-275, :743-765, :831-835, ``fit``'s
+``outwarp_fun`` :1550-1558, ``predict``'s branches :2205-2275,
+``predict_quantile``'s :2693-2731, the refusals of ``predict_full`` and
+``quad`` :2129, :2310, no rank-1 update :1090) and the matrix-free tier
+(``Posterior.matrix_free``, ``fit``'s ``method="cg"`` and ``"auto"``
+through ``inference/cg_fit.py`` :1612-1630, ``update``'s matrix-free
+branch :1238-1262, ``_require_factors`` and ``_cg_serve`` :1299-1343,
+``save``/``load``'s ``infer_method`` :2541, :2634-2652).  One departure:
+``fit`` refuses output warping together with the CG method (a
+``ValueError`` before any state changes), where the JAX package fits the
+unwarped ``y`` and serves it as if it were warped (``ops/iterative.py:
+435-444`` never warps, ``gp.py:2240-2259`` back-transforms).
+
 Left out, with the JAX package's lines:
 
-- until later slices, ``fit`` raising ``NotImplementedError`` for each:
-  ``method="cg"`` and ``"auto"`` above its threshold (:1618-1630), the
-  ``outwarp_fun`` option (:1550-1558);
-- until later slices: output warping and the CG / matrix-free
-  posteriors (:1312-1391, ``predict``'s outwarp branches :2205-2259,
-  ``predict_quantile``'s :2693-2731), the mesh tier (``mesh``,
-  :312-323, :1981-2012, ``quad``'s mesh block :2355-2377);
+- until a later slice: the mesh tier (``mesh``, :312-323, :1981-2012,
+  ``quad``'s mesh block :2355-2377);
 - for good, being TPU-only: ``mxu_predict`` (:301-311, :527-538),
   ``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
   compiled XLA programs, so the rank-1 update grows each factor by one
@@ -123,16 +131,23 @@ class Posterior:
     of extending a factor it did not build.
     """
 
-    __slots__ = ("hyp", "sn2_mult", "L_chol", "_alpha", "_sW", "_L",
-                 "_direct")
+    __slots__ = ("hyp", "sn2_mult", "L_chol", "matrix_free", "n_real",
+                 "_alpha", "_sW", "_L", "_direct")
 
-    def __init__(self, hyp, alpha, sW, L, sn2_mult, Lchol):
+    def __init__(self, hyp, alpha, sW, L, sn2_mult, Lchol,
+                 matrix_free=False):
         self.hyp = hyp
         self._alpha = alpha
         self._sW = sW
         self._L = L
         self.sn2_mult = sn2_mult
         self.L_chol = Lchol
+        # matrix_free: no stored O(N^2) factor; predictions run through
+        # the CG tier (ops/iterative.py), and ``_alpha`` caches the padded
+        # CG weight vector after the first predict, whose first ``n_real``
+        # rows ``alpha`` shows (gpyreg_tpu/gp.py:114-135).
+        self.matrix_free = matrix_free
+        self.n_real = None
         self._direct = set()
 
     def _set(self, name, v):
@@ -141,7 +156,10 @@ class Posterior:
 
     @property
     def alpha(self):
-        return self._alpha
+        a = self._alpha
+        if a is None or self.n_real is None or "alpha" in self._direct:
+            return a
+        return a[: self.n_real]
 
     @alpha.setter
     def alpha(self, v):
@@ -186,6 +204,9 @@ class GP:
         route.  A float32 GP on a CUDA device always builds its
         covariances with the kernel tile (``ops/tile_kernels.py``); on
         the CPU, and in float64, the plain composition serves.
+    outwarp : object from :mod:`gpyreg_tpu_torch.outwarp_functions`
+        Optional output warping; its hyperparameters come after the
+        mean's in the flat vector.
     device : torch.device or str
         Where the factors live and the work runs: the CUDA card by
         default (raising when there is none), ``"cpu"`` on request.
@@ -198,6 +219,7 @@ class GP:
         mean: object,
         noise: object,
         dtype=None,
+        outwarp: object = None,
         fast_predict: bool = False,
         pallas_predict: bool = False,
         device=None,
@@ -206,6 +228,7 @@ class GP:
         self.covariance = covariance
         self.mean = mean
         self.noise = noise
+        self.outwarp = outwarp
         self.fast_predict = bool(fast_predict)
         self.pallas_predict = bool(pallas_predict)
         self.dtype = np.dtype(dtype if dtype is not None else np.float64)
@@ -220,6 +243,10 @@ class GP:
         self.normalization_constants = None
         self._ctx = None
         self._fit_ctx = None
+        # "exact" (Cholesky factors) or "cg" (the matrix-free tier, set by
+        # fit(options={"method": "cg"})), with the CG serving options.
+        self._infer_method = "exact"
+        self._cg_options = {}
         self.set_bounds()
         self.set_priors()
         # Scratch dict used by PyVBMC (reference gaussian_process.py:61-62).
@@ -242,6 +269,7 @@ class GP:
             noise_constant=bool(p[0] == 1),
             noise_user=int(p[1]),
             noise_rectified=bool(p[2] == 1),
+            outwarp=None if self.outwarp is None else self.outwarp._kind,
         )
 
     def _invalidate(self):
@@ -455,11 +483,14 @@ class GP:
     # ------------------------------------------------------------------
 
     def _hyper_info(self):
-        return (
+        info = (
             self.covariance.hyperparameter_info(self.D)
             + self.noise.hyperparameter_info()
             + self.mean.hyperparameter_info(self.D)
         )
+        if self.outwarp is not None:
+            info = info + self.outwarp.hyperparameter_info()
+        return info
 
     def _hyp_counts(self):
         cov_N = self.covariance.hyperparameter_count(self.D)
@@ -467,8 +498,11 @@ class GP:
         noise_N = self.noise.hyperparameter_count()
         return cov_N, noise_N, mean_N
 
+    def _outwarp_N(self):
+        return 0 if self.outwarp is None else self.outwarp.hyperparameter_count()
+
     def _hyp_N(self):
-        return sum(self._hyp_counts())
+        return sum(self._hyp_counts()) + self._outwarp_N()
 
     def set_bounds(self, bounds: dict = None):
         """Set hyperparameter lower/upper bounds from a dict of
@@ -531,12 +565,12 @@ class GP:
         ub = resolve(upper_bounds, self.upper_bounds)
 
         # One recommended-bounds table for the whole flat hyp vector, in
-        # canonical cov | noise | mean order; NaN user entries pick up the
-        # recommendation elementwise.
-        infos = [
-            m.get_bounds_info(self.X, self.y)
-            for m in (self.covariance, self.noise, self.mean)
-        ]
+        # canonical cov | noise | mean | outwarp order; NaN user entries
+        # pick up the recommendation elementwise.
+        modules = [self.covariance, self.noise, self.mean]
+        if self.outwarp is not None:
+            modules.append(self.outwarp)
+        infos = [m.get_bounds_info(self.X, self.y) for m in modules]
         rec_lb = np.concatenate([info["LB"] for info in infos])
         rec_ub = np.concatenate([info["UB"] for info in infos])
 
@@ -724,8 +758,11 @@ class GP:
         posteriors this GP built extends each sample's factors in O(N^2)
         (``core/rank1.py``; ``hyp`` is then ignored, as in the JAX
         package).  A sample whose update is numerically unstable warns and
-        is rebuilt alone.  Anything else, and posteriors holding a factor
-        the caller assigned, rebuilds every sample."""
+        is rebuilt alone.  Anything else, posteriors holding a factor the
+        caller assigned, and an output-warped GP rebuild every sample.  A
+        GP fitted with ``method="cg"`` stores matrix-free posteriors
+        instead: no factor is built, and the CG weight vector is solved at
+        the first predict (``gpyreg_tpu/gp.py:1238-1262``)."""
         X_new, y_new, s2_new = self._convert_shapes(X_new, y_new, s2_new)
         N_old = None if self.X is None else self.X.shape[0]
         rank_one = (
@@ -737,6 +774,7 @@ class GP:
             and X_new.shape[0] == 1
             and y_new.shape[0] == 1
             and s2_new is None
+            and self.outwarp is None
             and self.posteriors is not None
             and self._rank_one_ready(N_old)
         )
@@ -768,9 +806,12 @@ class GP:
             # Release the old factors first: at N = 16384 a set of eight
             # samples holds 8.6 GB of the device in float32.
             self.posteriors = None
-            self.posteriors = np.array(
-                self._compute_posteriors(hyp), dtype=object
-            )
+            if self._infer_method == "cg":
+                posts = [Posterior(h, None, None, None, 1, None,
+                                   matrix_free=True) for h in hyp]
+            else:
+                posts = self._compute_posteriors(hyp)
+            self.posteriors = np.array(posts, dtype=object)
         else:
             self.posteriors = np.array(
                 [Posterior(h, None, None, None, None, None) for h in hyp],
@@ -974,8 +1015,27 @@ class GP:
           alone.  Also ``step_out``, ``sampler_diagnostics`` and
           ``display``.
 
-        ``method="cg"`` (and ``"auto"`` above ``cg_threshold_n``) and
-        ``outwarp_fun`` raise ``NotImplementedError``.  ``fit_timings``
+        - ``outwarp_fun``: attach an output warp at fit time (the MATLAB
+          oracle's OutwarpFun, gplite_train.m:39); the hyperparameter
+          layout changes, so bounds and priors reset and stale posteriors
+          are dropped.
+        - ``method``: 'exact' (default), 'cg' (the matrix-free tier,
+          ``inference/cg_fit.py``: a small design ranked at CG tolerance
+          1e-3, ``fit_cg``'s L-BFGS-B over the stochastic CG+SLQ NLML,
+          matrix-free posteriors; options ``cg_row_chunk`` (1024),
+          ``cg_max_iter`` (500), ``cg_tol`` (1e-5), ``cg_n_probes`` (8),
+          ``cg_n_lanczos`` (32), ``cg_max_opt_iter`` (100),
+          ``cg_warm_start`` (True), ``cg_init_N`` (16), ``cg_seed`` (0),
+          ``cg_predict_tol`` (1e-6), ``cg_test_chunk`` (1024),
+          ``cg_precond_rank`` (0), and for the fixed-probe chain, which
+          runs only when ``n_samples`` is given, ``cg_sample_tol``,
+          ``cg_sample_max_iter``, ``cg_sample_max_shrink``,
+          ``cg_sample_driver``) or 'auto' (CG above ``cg_threshold_n``,
+          32768 rows).  Output warping with the CG method raises
+          ``ValueError`` before any state changes: the JAX package's CG
+          objective never warps ``y``.
+
+        ``trace_dir`` raises ``NotImplementedError``.  ``fit_timings``
         holds ``design_s``, ``optimize_s``, ``sample_s`` when it samples
         and ``posterior_s``; ``fit_report`` holds every restart's result
         (``"restarts"``) and the best objective value of the design
@@ -1006,12 +1066,6 @@ class GP:
         lower_bounds = options.get("lower_bounds", "current")
         upper_bounds = options.get("upper_bounds", "current")
 
-        # What later slices bring raises before any state changes.
-        if options.get("outwarp_fun", None) is not None:
-            raise NotImplementedError(
-                "fit(options={'outwarp_fun': ...}) is not ported yet: it "
-                "arrives with output warping (outwarp_functions)."
-            )
         if options.get("trace_dir", None):
             raise NotImplementedError(
                 "fit(options={'trace_dir': ...}) is a hook into the JAX "
@@ -1026,14 +1080,19 @@ class GP:
             method = "cg" if N_data > options.get(
                 "cg_threshold_n", 32768
             ) else "exact"
-        if method == "cg":
-            raise NotImplementedError(
-                "fit(options={'method': 'cg'}) is not ported yet: it "
-                "arrives with the matrix-free slice (ops/iterative.py, "
-                "inference/cg_fit.py)."
-            )
-        if method != "exact":
+        if method not in ("exact", "cg"):
             raise ValueError(f"Unknown fit method {method!r}")
+        outwarp_fun = options.get("outwarp_fun", None)
+        if method == "cg" and (outwarp_fun or self.outwarp) is not None:
+            # The JAX package's CG objective never warps y
+            # (gpyreg_tpu/ops/iterative.py:435-444) while its predict
+            # back-transforms (gpyreg_tpu/gp.py:2240-2259): the warp
+            # hyperparameters get a zero gradient and the GP serves the
+            # unwarped fit as if it were warped.
+            raise ValueError(
+                "Output warping is not supported by the matrix-free "
+                "(method='cg') fit; use method='exact'."
+            )
         sampling = s_N > 0 and sampler_name != "laplace"
         if sampling:
             # The JAX package validates the name after the MAP
@@ -1055,6 +1114,15 @@ class GP:
         if s2 is not None:
             self.s2 = s2
         self._invalidate()
+
+        if outwarp_fun is not None and outwarp_fun is not self.outwarp:
+            self.outwarp = outwarp_fun
+            self.posteriors = None
+            # set_bounds recomputes no normalization until set_priors has
+            # sized the prior table to the new layout.
+            self.no_prior = None
+            self.set_bounds()
+            self.set_priors()
 
         cov_N, noise_N, _ = self._hyp_counts()
 
@@ -1088,12 +1156,14 @@ class GP:
         UB = self.upper_bounds
         LB = self._f32_noise_floor(LB, UB, cov_N, options)
 
-        PLB = np.concatenate(
-            [cov_info["PLB"], noise_info["PLB"], mean_info["PLB"]]
-        )
-        PUB = np.concatenate(
-            [cov_info["PUB"], noise_info["PUB"], mean_info["PUB"]]
-        )
+        plb_parts = [cov_info["PLB"], noise_info["PLB"], mean_info["PLB"]]
+        pub_parts = [cov_info["PUB"], noise_info["PUB"], mean_info["PUB"]]
+        if self.outwarp is not None:
+            ow_info = self.outwarp.get_bounds_info(self.X, self.y)
+            plb_parts.append(ow_info["PLB"])
+            pub_parts.append(ow_info["PUB"])
+        PLB = np.concatenate(plb_parts)
+        PUB = np.concatenate(pub_parts)
         PLB = np.minimum(np.maximum(PLB, LB), UB)
         PUB = np.maximum(np.minimum(PUB, UB), LB)
 
@@ -1106,6 +1176,14 @@ class GP:
                 )
         elif isinstance(hyp0, dict):
             hyp0 = self.hyperparameters_from_dict(hyp0)
+
+        if method == "cg":
+            from .inference import cg_fit as _cg_fit
+
+            return _cg_fit.fit_cg_path(
+                self, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N, _t_start
+            )
+        self._infer_method = "exact"
 
         # --- slicelite warm-refit shortcut (gplite_train.m:178-197) ---
         # When the previous hyperposterior samples still cover the new
@@ -1266,9 +1344,17 @@ class GP:
     def _predict_chunk(self, N, M):
         return int(max(1, min(M, _PREDICT_CHUNK_ELEMS // max(1, N))))
 
+    def _matrix_free(self):
+        return self.posteriors is not None and any(
+            p.matrix_free for p in self.posteriors)
+
     def _group_predict(self, x_star):
         """Per-sample predictive mean and variance, (M, s_N) each, with
-        one device-to-host copy at the end."""
+        one device-to-host copy at the end; matrix-free posteriors go
+        through :meth:`_cg_serve`.  Under output warping these are the
+        moments in the warped space."""
+        if self._matrix_free():
+            return self._cg_serve(x_star)
         spec = self._spec()
         S = self.posteriors.size
         xs = self._tensor(x_star)
@@ -1300,7 +1386,15 @@ class GP:
     ):
         """Posterior mean and variance at ``x_star``; samples are either
         returned separately (M, s_N) or reduced as a Gaussian mixture
-        (reference gaussian_process.py:1793-1811)."""
+        (reference gaussian_process.py:1793-1811).
+
+        Under output warping (``gpyreg_tpu/gp.py:2205-2275``) each
+        sample's latent mean is inverse-warped and its variances divided
+        by the squared warp slope there (gplite_pred.m:113-130; with
+        ``add_noise`` the mean stays in the warped space, as in the
+        oracle), and ``return_lpd`` is the density of the original
+        observation by change of variables, the mixture's exact
+        log-mean-density."""
         x_star, y_star, s2_star = self._convert_shapes(
             x_star, y_star, s2_star
         )
@@ -1325,10 +1419,42 @@ class GP:
                     sn2_star * sn2_mult * np.ones((x_star.shape[0], 1)),
                     (-1, 1),
                 )
-        if return_lpd and separate_samples:
+        ow_N = self._outwarp_N()
+        if return_lpd and self.outwarp is not None:
+            lpd_s = np.zeros((x_star.shape[0], s_N))
+            for s, p in enumerate(self.posteriors):
+                yw, dw = self.outwarp.compute(
+                    p.hyp[-ow_N:], y_star, compute_grad=True
+                )
+                v = y_s2[:, s : s + 1]
+                lpd_s[:, s : s + 1] = (
+                    -0.5 * (yw - mu[:, s : s + 1]) ** 2 / v
+                    - 0.5 * np.log(2 * np.pi * v)
+                    + np.log(np.abs(dw))
+                )
+            if separate_samples:
+                lpd = lpd_s
+            else:
+                lpd = np.reshape(
+                    sp.special.logsumexp(lpd_s, axis=1) - np.log(s_N), (-1, 1)
+                )
+        elif return_lpd and separate_samples:
             lpd = -0.5 * (y_star - mu) ** 2 / y_s2 - 0.5 * np.log(
                 2 * np.pi * y_s2
             )
+
+        if self.outwarp is not None:
+            for s, p in enumerate(self.posteriors):
+                hyp_ow = p.hyp[-ow_N:]
+                fmu = self.outwarp.compute(hyp_ow, mu[:, s : s + 1],
+                                           inverse=True)
+                _, dwarp = self.outwarp.compute(hyp_ow, fmu, compute_grad=True)
+                s2[:, s : s + 1] = s2[:, s : s + 1] / dwarp**2
+                if add_noise:
+                    y_s2[:, s : s + 1] = y_s2[:, s : s + 1] / dwarp**2
+                else:
+                    mu[:, s : s + 1] = fmu
+
         if add_noise:
             s2 = y_s2
 
@@ -1342,7 +1468,9 @@ class GP:
                 v = 0
                 mu = np.reshape(mu, (-1, 1))
                 s2 = np.reshape(s2, (-1, 1))
-            if return_lpd and add_noise:
+            if return_lpd and self.outwarp is not None:
+                pass  # already the mixture's exact density (above)
+            elif return_lpd and add_noise:
                 lpd = -0.5 * (y_star - mu) ** 2 / s2 - 0.5 * np.log(
                     2 * np.pi * s2
                 )
@@ -1392,6 +1520,16 @@ class GP:
         the JAX package's correction of the reference, which spreads a
         heteroskedastic (M, 1) noise over every column
         (gaussian_process.py:1659)."""
+        if self.outwarp is not None:
+            raise ValueError(
+                "Full-covariance prediction is unsupported with output "
+                "warping."
+            )
+        if self._matrix_free():
+            raise ValueError(
+                "Full-covariance prediction is unsupported with "
+                "matrix-free (method='cg') posteriors."
+            )
         x_star, y_star, s2_star = self._convert_shapes(
             x_star, y_star, s2_star
         )
@@ -1437,6 +1575,10 @@ class GP:
             raise ValueError(
                 "Bayesian quadrature only supports the squared exponential "
                 "kernel."
+            )
+        if self.outwarp is not None:
+            raise ValueError(
+                "Bayesian quadrature is unsupported with output warping."
             )
         self._require_factors("Bayesian quadrature")
         if not isinstance(
@@ -1555,17 +1697,42 @@ class GP:
         1-49): each sample's Gaussian predictive is discretized on an
         ``nx``-point norminv grid, and the quantiles ``q`` are taken over
         the pooled grid.  ``observed`` gives quantiles of the observations
-        (with noise), else of the latent function.
+        (with noise), else of the latent function.  Under output warping
+        the grid is built in the warped space and inverse-warped once a
+        sample (gplite_qpred.m:40-46, ``gpyreg_tpu/gp.py:2693-2731``).
 
         Returns (M, len(q)), or (M,) for a scalar ``q``."""
         x_star, y_star, s2_star = self._convert_shapes(
             x_star, y_star, s2_star
         )
         xx = sp.stats.norm.ppf(np.linspace(0.5 / nx, 1 - 0.5 / nx, nx))
-        mu, s2 = self.predict(
-            x_star, y_star, s2_star, add_noise=observed, separate_samples=True
-        )
+        if self.outwarp is None:
+            mu, s2 = self.predict(
+                x_star, y_star, s2_star, add_noise=observed,
+                separate_samples=True,
+            )
+        else:
+            mu, s2 = self._group_predict(x_star)
+            s2 = np.maximum(s2, 0)
+            if observed:
+                cov_N, noise_N, _ = self._hyp_counts()
+                for s, p in enumerate(self.posteriors):
+                    sn2_star = self.noise.compute(
+                        p.hyp[cov_N : cov_N + noise_N], x_star, y_star,
+                        s2_star,
+                    )
+                    mult = 1 if p.sn2_mult is None else p.sn2_mult
+                    s2[:, s : s + 1] = s2[:, s : s + 1] + np.reshape(
+                        sn2_star * mult * np.ones((x_star.shape[0], 1)),
+                        (-1, 1),
+                    )
         grid = mu[:, :, None] + np.sqrt(np.maximum(s2, 0))[:, :, None] * xx
+        if self.outwarp is not None:
+            ow_N = self._outwarp_N()
+            for s, p in enumerate(self.posteriors):
+                grid[:, s, :] = self.outwarp.compute(
+                    p.hyp[-ow_N:], grid[:, s, :], inverse=True
+                )
         grid = grid.reshape(x_star.shape[0], -1)
         out = np.quantile(grid, np.atleast_1d(q), axis=1).T
         return out[:, 0] if np.isscalar(q) else out
@@ -1575,10 +1742,16 @@ class GP:
     # ------------------------------------------------------------------
 
     def _require_factors(self, what: str):
-        """Raise for operations that need the posterior factors when they
-        are absent (``gpyreg_tpu/gp.py:1300-1310`` raises for matrix-free
-        posteriors, which the port does not have; here the factors are
-        absent after ``clean()`` or ``update(compute_posterior=False)``)."""
+        """Raise for operations that need explicit posterior factors: when
+        the posteriors are matrix-free (``gpyreg_tpu/gp.py:1300-1310``),
+        and when the factors are absent (after ``clean()`` or
+        ``update(compute_posterior=False)``)."""
+        if self._matrix_free():
+            raise ValueError(
+                f"{what} requires explicit posterior factors; the "
+                'stored posteriors are matrix-free (fit method="cg"). '
+                'Refit with the default method="exact" to use it.'
+            )
         if self.posteriors is None or any(
             p.alpha is None for p in self.posteriors
         ):
@@ -1586,6 +1759,41 @@ class GP:
                 f"{what} requires the posterior factors; rebuild them with "
                 "update(compute_posterior=True)."
             )
+
+    def _cg_serve(self, x_star):
+        """Matrix-free predictive mean and variance per posterior sample,
+        (M, s_N) each (``gpyreg_tpu/gp.py:1312-1343``).  Each posterior's
+        padded CG weight vector is solved at its first predict and kept on
+        it, on the device.  ``cg_report`` keeps each sample's solve record
+        (iterations and relative residuals, ``ops.iterative.cg_predict``'s
+        info without the weights); a solve that stopped at ``max_iter``
+        warns, where the JAX package says nothing."""
+        from .ops import iterative as _iterative
+
+        spec = self._spec()
+        M, S = x_star.shape[0], self.posteriors.size
+        mu, s2 = np.zeros((M, S)), np.zeros((M, S))
+        X, y, s2_obs = self._data()
+        xs = self._tensor(x_star)
+        max_iter = self._cg_options.get("max_iter", 1000)
+        self.cg_report = []
+        for idx, p in enumerate(self.posteriors):
+            mu_s, var_s, info = _iterative.cg_predict(
+                spec, self._tensor(p.hyp), X, y, s2_obs, xs,
+                compute_var=True, alpha0=p._alpha, **self._cg_options,
+            )
+            if p._alpha is None:
+                p._alpha, p.n_real = info["alpha"], X.shape[0]
+            report = {k: v for k, v in info.items() if k != "alpha"}
+            self.cg_report.append(report)
+            if max(report.get("alpha_iters", 0),
+                   report.get("var_iters", 0)) >= max_iter:
+                warnings.warn(
+                    f"CG for posterior {idx} stopped at max_iter={max_iter} "
+                    f"before its tolerance: {report}", stacklevel=3)
+            mu[:, idx] = mu_s.ravel()
+            s2[:, idx] = var_s.ravel()
+        return mu, s2
 
     def _mixture_mean_variance_fn(self, compute_var: bool = True,
                                   differentiable: bool = False):
@@ -1912,7 +2120,12 @@ class GP:
     def save(self, path):
         """Serialize the GP to an ``.npz`` file with the keys of
         ``gpyreg_tpu.GP.save``: data, bounds, priors and hyperparameter
-        samples; the O(N^2) factors are rebuilt on load."""
+        samples; the O(N^2) factors are rebuilt on load.  A GP fitted with
+        ``method="cg"`` also stores its CG serving options as
+        ``meta_cg_<option>``, which the JAX package's ``load`` ignores (it
+        serves a reloaded CG GP at ``cg_predict``'s defaults); the port's
+        ``load`` restores them, so a reloaded GP predicts as the saved one
+        did."""
         if self.mean._kind.startswith("custom:"):
             raise ValueError(
                 "GPs with a CustomMean cannot be serialized: the user "
@@ -1925,10 +2138,12 @@ class GP:
             "noise_parameters": np.asarray(self.noise.parameters),
             "dtype": str(self.dtype),
             "no_prior": -1 if self.no_prior is None else int(self.no_prior),
-            "outwarp_kind": "",
+            "outwarp_kind": "" if self.outwarp is None else self.outwarp._kind,
             "fast_predict": int(self.fast_predict),
-            "infer_method": 0,
+            "infer_method": int(self._infer_method == "cg"),
         }
+        if self._infer_method == "cg":
+            meta.update({f"cg_{k}": v for k, v in self._cg_options.items()})
         arrays = {f"meta_{k}": v for k, v in meta.items()}
         for name in ("X", "y", "s2"):
             v = getattr(self, name)
@@ -1949,19 +2164,14 @@ class GP:
     def load(cls, path, device=None):
         """Reconstruct a GP saved by ``gpyreg_tpu.GP.save`` or
         :meth:`save`, on ``device`` (the card by default), with its
-        bounds, prior table and normalization constants; posterior
-        factors are recomputed."""
+        bounds, prior table, normalization constants and output warp;
+        posterior factors are recomputed.  A GP fitted with
+        ``method="cg"`` gets matrix-free posteriors back whatever
+        ``has_factors`` says: a rebuild never factorizes its N x N
+        matrix (``gpyreg_tpu/gp.py:2634-2652``)."""
         from .convert import gp_from_arrays
 
         with np.load(path, allow_pickle=False) as z:
-            if "meta_outwarp_kind" in z and str(z["meta_outwarp_kind"]):
-                raise NotImplementedError(
-                    "Output warping is not ported yet (outwarp_functions)."
-                )
-            if "meta_infer_method" in z and int(z["meta_infer_method"]):
-                raise NotImplementedError(
-                    "Matrix-free (CG) posteriors are not ported yet."
-                )
             meta = {
                 k[len("meta_"):]: z[k] for k in z.files if k.startswith("meta_")
             }
@@ -1971,10 +2181,11 @@ class GP:
             priors = {
                 k[len("prior_"):]: z[k] for k in z.files if k.startswith("prior_")
             }
+        cg = "infer_method" in meta and bool(int(meta["infer_method"]))
         return gp_from_arrays(
             meta, arrays["X"], arrays["y"], arrays["s2"], arrays["hyp"],
-            device=device, compute_posterior=has_factors, bounds=bounds,
-            hyper_priors=priors,
+            device=device, compute_posterior=has_factors or cg,
+            bounds=bounds, hyper_priors=priors,
         )
 
     # ------------------------------------------------------------------

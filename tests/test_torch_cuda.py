@@ -563,3 +563,109 @@ def test_predict_full_on_card_launches_self_and_cross(cuda):
     assert c32.shape == (64, 64, S)
     assert np.max(np.abs(mu32 - mu64)) < 1e-3
     assert np.max(np.abs(c32 - c64)) < 1e-3
+
+
+def test_panel_matvec_on_card_builds_every_panel_with_the_tile(cuda):
+    """The CG operator's matvec on the card: one kernel-tile cross a
+    (row_chunk, N) panel (N % 4 == 0: the TMA store), and the product
+    agrees with the plain float64 matvec on the CPU."""
+    from gpyreg_tpu_torch.core.model import ModelSpec
+    from gpyreg_tpu_torch.ops import iterative as IT
+
+    rng = np.random.default_rng(11)
+    N, D, B, rc = 1024, 4, 9, 256
+    X = rng.normal(size=(N, D))
+    V = rng.normal(size=(N, B))
+    hyp_cov = np.concatenate([0.2 * rng.normal(size=D), [0.1]])
+    sn2 = np.full((N,), 0.05)
+    spec = ModelSpec(D=D, cov="se", mean="const", noise_constant=True,
+                     noise_user=0, noise_rectified=False)
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)  # noqa: E731
+    TK.reset_launches()
+    with torch.no_grad():
+        out = IT._panel_matvec(spec, t32(hyp_cov), t32(X), t32(V), t32(sn2), rc)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "cross": N // rc}
+    ref = IT._panel_matvec(spec, torch.as_tensor(hyp_cov), torch.as_tensor(X),
+                           torch.as_tensor(V), torch.as_tensor(sn2), rc)
+    scale = torch.max(torch.abs(ref)).item()
+    assert torch.max(torch.abs(out.cpu().double() - ref)).item() < 1e-4 * scale
+
+
+def test_cg_nlml_and_predict_on_card_match_cpu(cuda):
+    """``cg_nlml`` with its gradient on the card, padded (N = 1000 in
+    panels of 256): every forward panel of the CG and Lanczos passes is a
+    kernel-tile cross (the surrogate takes the plain composition and
+    launches nothing), the value and gradient agree with the float64 CPU
+    estimate from the same probes, and ``cg_predict`` at 64 points with
+    its 1000 x 64 cross agrees with the float64 CPU prediction."""
+    from gpyreg_tpu_torch.core.model import ModelSpec
+    from gpyreg_tpu_torch.ops import iterative as IT
+
+    rng = np.random.default_rng(12)
+    N, D = 1000, 4
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.5 * rng.normal(size=(N, 1))
+    hyp = np.concatenate([0.2 * rng.normal(size=D), [0.1], [np.log(0.5)], [0.1]])
+    spec = ModelSpec(D=D, cov="se", mean="const", noise_constant=True,
+                     noise_user=0, noise_rectified=False)
+    kw = dict(key=0, compute_grad=True, tol=1e-5, row_chunk=256, n_probes=4,
+              n_lanczos=12, return_sol=True)
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)  # noqa: E731
+    probes = IT.make_probes(0, (1024, 4), torch.float64, "cpu")
+    real = IT.make_probes
+    IT.make_probes = lambda s, shape, dtype, device: probes.to(dtype=dtype,
+                                                                device=device)
+    try:
+        TK.reset_launches()
+        v32, g32, _, it32 = IT.cg_nlml(spec, hyp, t32(X), t32(y), **kw)
+        launches = dict(TK.LAUNCHES)
+        v64, g64, _, _ = IT.cg_nlml(spec, hyp, torch.as_tensor(X),
+                                    torch.as_tensor(y), **kw)
+    finally:
+        IT.make_probes = real
+    assert launches == {**dict.fromkeys(TK.LAUNCHES, 0),
+                        "cross": 4 * (it32 + 12)}
+    assert abs(v32 - v64) < 1e-3 * abs(v64)
+    assert np.max(np.abs(g32 - g64)) < 1e-2 * max(1.0, np.max(np.abs(g64)))
+    xs = rng.normal(size=(64, D))
+    TK.reset_launches()
+    mu32, s32, info = IT.cg_predict(spec, hyp, t32(X), t32(y), None, t32(xs),
+                                    compute_var=True, tol=1e-5, row_chunk=256,
+                                    test_chunk=64)
+    n_mv = info["alpha_iters"] + info["var_iters"]
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0),
+                           "cross": 4 * n_mv + 1}
+    mu64, s64, _ = IT.cg_predict(spec, hyp, torch.as_tensor(X), torch.as_tensor(y),
+                                 None, torch.as_tensor(xs), compute_var=True,
+                                 tol=1e-9, row_chunk=256, test_chunk=64)
+    assert np.max(np.abs(mu32 - mu64)) < 1e-3 and np.max(np.abs(s32 - s64)) < 1e-3
+
+
+def test_outwarp_nlml_gradient_on_card_goes_through_the_gradient_tile(cuda):
+    """A warped NLML gradient on the card: one self build and one
+    gradient-tile launch a lane, and the float32 gradient (the warp's
+    entries from autograd) agrees with the float64 CPU gradient."""
+    from gpyreg_tpu_torch.core.model import ModelSpec
+    from gpyreg_tpu_torch.core.nlml import get_fns
+
+    rng = np.random.default_rng(13)
+    N, D, B = 512, 3, 2
+    X = rng.uniform(-3, 3, size=(N, D))
+    y = -0.5 * np.sum(X**2, axis=1, keepdims=True) + 0.1 * rng.normal(size=(N, 1))
+    spec = ModelSpec(D=D, cov="se", mean="const", noise_constant=True,
+                     noise_user=0, noise_rectified=False, outwarp="negpowc1")
+    hyp = 0.05 * rng.normal(size=(B, spec.hyp_N))
+    hyp[:, D + 1] += np.log(0.3)
+    hyp[:, D + 3] += -3.0  # the threshold inside the data
+    fns = get_fns(spec, False, False)
+    TK.reset_launches()
+    v32, g32 = fns["nlz_grad"](hyp, torch.as_tensor(X, dtype=torch.float32,
+                                                    device=cuda),
+                               torch.as_tensor(y, dtype=torch.float32,
+                                               device=cuda))
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "self": B, "vjp": B}
+    v64, g64 = fns["nlz_grad"](hyp, torch.as_tensor(X), torch.as_tensor(y))
+    scale = torch.clamp(torch.abs(g64), min=1.0)
+    assert torch.max(torch.abs(g32.cpu() - g64) / scale).item() < 1e-2
+    assert torch.all(g64[:, -2:] != 0)

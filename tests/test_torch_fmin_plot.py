@@ -186,6 +186,6 @@ def test_alias_module_and_exports():
     assert gaussian_process.GP is gt.GP
     assert gaussian_process.Posterior is gt.Posterior
     assert gt.f_min_fill is f_min_fill and gt.slice_sample is slice_sample
-    assert set(gt.__all__) == set(gj.__all__) - {"outwarp_functions"}
+    assert set(gt.__all__) == set(gj.__all__)
     for name in gt.__all__:
         assert hasattr(gt, name)

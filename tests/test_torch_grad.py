@@ -245,7 +245,7 @@ def test_nlz_chain_and_design_match_jax():
     chain = NT.nlz_chain(spec_t, h, _t(Xd), _t(y), None)
     design = NT.nlz_design(spec_t, h, _t(Xd), _t(y), None)
     full = NT.nlz(spec_t, h, _t(Xd), _t(y), None)
-    _, _, _, mult, _, _ = NT.gp_parts(spec_t, h, _t(Xd), _t(y), None)
+    mult = NT.gp_parts(spec_t, h, _t(Xd), _t(y), None)[3]
     assert mult[-1].item() > 1.0 and torch.all(mult[:-1] == 1.0)
     assert _rel(chain.numpy(), full.numpy()) < RTOL
     assert torch.isinf(design[-1]) and design[-1].item() > 0

@@ -1,5 +1,6 @@
 """The port package stands without JAX: importing every module of
-gpyreg_tpu_torch (the ``inference`` subpackage included) in a fresh
+gpyreg_tpu_torch (the ``inference`` subpackage, ``outwarp_functions``
+and ``ops.iterative`` included) in a fresh
 interpreter leaves ``jax``, ``optax`` and ``gpyreg_tpu`` out of
 ``sys.modules``, and no file of the package names the ``jax`` module.
 Nor does the import pull in ``matplotlib``, which only ``GP.plot``
@@ -57,7 +58,8 @@ def test_import_leaves_jax_out():
     for name in ("inference.map_optimize", "inference.fit_phases",
                  "inference.device_slice", "inference.sampling", "slice_sample",
                  "inference.mala", "inference.hmc", "inference.ensemble_slice",
-                 "core.rank1", "formatting", "gaussian_process"):
+                 "core.rank1", "formatting", "gaussian_process",
+                 "outwarp_functions", "ops.iterative", "inference.cg_fit"):
         assert "gpyreg_tpu_torch." + name in modules
 
 
@@ -84,9 +86,10 @@ def test_inference_subpackage_alone_leaves_jax_out():
     code = (
         "import sys\n"
         "import gpyreg_tpu_torch.inference\n"
-        "from gpyreg_tpu_torch.inference import (device_slice, ensemble_slice,\n"
-        "                                        fit_phases, hmc, mala,\n"
-        "                                        map_optimize, sampling)\n"
+        "from gpyreg_tpu_torch.inference import (cg_fit, device_slice,\n"
+        "                                        ensemble_slice, fit_phases,\n"
+        "                                        hmc, mala, map_optimize,\n"
+        "                                        sampling)\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'gpyreg_tpu'))\n"
         "assert not bad, bad\n"

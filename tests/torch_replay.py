@@ -18,14 +18,22 @@ moves of a slice step).  ``patch_streams`` makes the
 port's ``make_stream(seed)`` return ``replay(seed)``, the stream of
 ``jax.random.key(seed)``, which is the key the JAX package builds from
 the same integer.
+
+``patch_probes`` does the same for the matrix-free tier's probes: the
+port's ``ops.iterative.make_probes(seed, shape, ...)`` returns
+``jax.random.rademacher(jax.random.key(seed), shape)``, the block
+``gpyreg_tpu/ops/iterative.py:473`` draws from the key of that integer.
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+import torch
+
 import gpyreg_tpu  # noqa: F401  (float64 on: the chains' uniforms are float64)
 from gpyreg_tpu_torch.inference import device_slice as TDS
+from gpyreg_tpu_torch.ops import iterative as TIT
 
 _TINY = float(np.finfo(np.float64).tiny)
 
@@ -104,3 +112,13 @@ def replay(seed):
 
 def patch_streams(monkeypatch):
     monkeypatch.setattr(TDS, "make_stream", replay)
+
+
+def jax_probes(seed, shape, dtype, device):
+    jdt = jnp.float64 if dtype == torch.float64 else jnp.float32
+    z = jax.random.rademacher(jax.random.key(int(seed)), tuple(shape), dtype=jdt)
+    return torch.as_tensor(np.array(z)).to(dtype=dtype, device=device)
+
+
+def patch_probes(monkeypatch):
+    monkeypatch.setattr(TIT, "make_probes", jax_probes)

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with a card:
 
-    python3 tools/profile_torch_slice.py [--trace PATH]
+    python3 tools/profile_torch_slice.py [--trace PATH] [--group GROUP]
 
 It builds the config-5 GP of ``chip_smoke.py`` (N = 16384, D = 10, 8
 hyperparameter samples, float32, 100,000 test points, data from seed 0)
@@ -58,7 +58,24 @@ frees the build's shared allocation; ``predict_full`` at 1,024 points,
    ``cholesky_inverse`` the G^-1 of the adjoint;
 5. sweeps the test-point chunk of ``predict`` through 4096, 8192, 16384,
    8192, 4096 and 16384 points, in that order so that drift shows, and
-   reports points/s for each.
+   reports points/s for each;
+6. profiles the matrix-free tier and output warping: ``GP.fit`` with
+   ``chip_smoke.CG_OPTS`` (method "cg", ``cg_max_opt_iter`` cut to 10) on
+   the N = 65,536, D = 4 data of ``chip_smoke._cg_data`` (span
+   ``cg_fit_65536``, after a warm-up fit at N = 8192), ``predict`` at its
+   512 held-out points with the CG weights dropped before every run, so
+   that each run solves them (``cg_predict_512``), and the warped MAP fit
+   of ``chip_smoke.phase_outwarp`` (N = 16384, D = 10, NegativePowerC1,
+   ``outwarp_fit_16384``); each span is profiled once in a trace of its
+   own, then run without the profiler (once for the CG fit, which takes
+   a minute or more, three times for the others) and once more for its
+   operator table.
+
+``--group exact`` runs steps 1-5, ``--group matrix_free`` step 6, and
+the default both; ``--spans`` picks step 6's spans (``cg_fit``,
+``cg_predict``, ``outwarp_fit``; all by default).  The CG fit's trace
+holds every panel of every matvec: with all three spans the step takes
+over 25 minutes.
 
 Prints the card's name and power limit first and one JSON object of all
 results last.  Imports nothing of JAX.
@@ -161,18 +178,19 @@ def main():
                              "profile_torch_slice.json"),
         help="where to write the Chrome trace",
     )
+    parser.add_argument(
+        "--group", choices=("all", "exact", "matrix_free"), default="all",
+        help="the exact-path spans, the matrix-free and output-warping "
+             "spans, or both",
+    )
+    parser.add_argument(
+        "--spans", default="cg_fit,cg_predict,outwarp_fit",
+        help="the matrix_free group's spans to run, comma-separated",
+    )
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_slice.py needs a CUDA device")
     sys.path.insert(0, ROOT)
-    import numpy as np
-
-    from gpyreg_tpu_torch import gp as gp_mod
-    from chip_smoke import (D, D_TR, FIT_BENCH, FIT_HMC_BENCH, FIT_MALA_BENCH,
-                            FIT_SAMPLE_BENCH, M_PF, M_QUAD, M_TEST, N, N_TR,
-                            SEED, _data, _fit_data, _new_rows, _se_gp,
-                            _train_data)
-    from gpyreg_tpu_torch.inference import sampling
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -181,6 +199,125 @@ def main():
     print(f"card: {smi}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
+    out = {"card": smi}
+    if args.group in ("all", "exact"):
+        out.update(_profile_exact(args, acts))
+    if args.group in ("all", "matrix_free"):
+        out["matrix_free"] = _profile_matrix_free(args, acts)
+    print(json.dumps(out))
+
+
+def _report(spans, host, name):
+    r = spans[name]
+    print(f"{name}: wall {r['wall_ms']:.1f} ms (host clock "
+          f"{host[name]:.1f} ms), device busy {r['device_busy_ms']:.1f} "
+          f"ms, idle share {r['device_idle_share']:.4f}; without the "
+          f"profiler wall {r['unprofiled_wall_ms']:.1f} ms (runs "
+          f"{', '.join(f'{w:.1f}' for w in r['unprofiled_walls_ms'])}), "
+          f"idle share {r['device_idle_share_unprofiled']:.4f}")
+    for k in r["top_kernels"]:
+        print(f"  {k['ms']:10.2f} ms {100 * k['share_of_wall']:6.2f}%  "
+              f"{k['name']}")
+
+
+def _profile_matrix_free(args, acts):
+    """The matrix-free tier's and output warping's spans (module
+    docstring, step 6)."""
+    import numpy as np
+
+    import gpyreg_tpu_torch as gt
+    from chip_smoke import (CG_OPTS, D, D_CG, M_CG, N, OW_MAP, SEED,
+                            _cg_data, _ow_data, _se_gp)
+
+    X, y, xs, Xb, yb, _ = _cg_data()
+    hyp0 = np.concatenate([np.full(D_CG, 0.5), [0.0], [-1.0], [0.0]])
+    Xo, yo = _ow_data(N, D, 0, SEED + 8)[:2]
+
+    def cg_fit(Xf=X, yf=y):
+        g = _se_gp(D_CG, np.float32)
+        np.random.seed(SEED)
+        g.fit(Xf, yf, hyp0=hyp0, options={**CG_OPTS, "method": "cg"})
+        return g
+
+    def outwarp_fit():
+        g = _se_gp(D, np.float32,
+                   outwarp=gt.outwarp_functions.NegativePowerC1())
+        np.random.seed(SEED)
+        g.fit(Xo, yo, options=dict(OW_MAP))
+
+    wanted = set(args.spans.split(","))
+    fns = []
+    if wanted & {"cg_fit", "cg_predict"}:
+        # Warm-up at part B's size, then the full-width fit whose
+        # posterior the predict span serves (its weights dropped before
+        # every run).
+        cg_fit(Xb, yb)
+        gp = cg_fit()
+        print(f"cg_fit_{X.shape[0]}: timings {gp.fit_timings}", flush=True)
+
+        def cg_predict():
+            for p in gp.posteriors:
+                p._alpha = None
+            gp.predict(xs)
+
+        if "cg_fit" in wanted:
+            fns.append((f"cg_fit_{X.shape[0]}", cg_fit))
+        if "cg_predict" in wanted:
+            fns.append((f"cg_predict_{M_CG}", cg_predict))
+    if "outwarp_fit" in wanted:
+        outwarp_fit()
+        fns.append((f"outwarp_fit_{N}", outwarp_fit))
+    host, spans, ops = {}, {}, {}
+    for name, fn in fns:
+        trace = f"{args.trace}.{name}.json"
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(name):
+                fn()
+                torch.cuda.synchronize()
+            host[name] = (time.perf_counter() - t0) * 1e3
+        prof.export_chrome_trace(trace)
+        del prof
+        spans.update(_spans(trace, (name,)))
+        os.remove(trace)
+        # One unprofiled run for the CG fit (a minute or more each),
+        # three for the others.
+        walls = []
+        for _ in range(1 if name.startswith("cg_fit") else 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        r = spans[name]
+        r["host_wall_ms"] = host[name]
+        r["unprofiled_wall_ms"] = sorted(walls)[len(walls) // 2]
+        r["unprofiled_walls_ms"] = walls
+        r["device_idle_share_unprofiled"] = (
+            1.0 - r["device_busy_ms"] / r["unprofiled_wall_ms"])
+        _report(spans, host, name)
+        ops[name] = _op_table(fn, acts)
+        print(f"{name} by operator: wall {ops[name]['wall_ms']:.1f} ms")
+        for row in ops[name]["ops"]:
+            print(f"  {row['device_ms']:10.2f} ms "
+                  f"{100 * row['share_of_wall']:6.2f}%  {row['name']}",
+                  flush=True)
+    return {"spans": spans, "operators": ops}
+
+
+def _profile_exact(args, acts):
+    """The exact path's spans (module docstring, steps 1-5)."""
+    import numpy as np
+
+    from gpyreg_tpu_torch import gp as gp_mod
+    from chip_smoke import (D, D_TR, FIT_BENCH, FIT_HMC_BENCH, FIT_MALA_BENCH,
+                            FIT_SAMPLE_BENCH, M_PF, M_QUAD, M_TEST, N, N_TR,
+                            SEED, _data, _fit_data, _new_rows, _se_gp,
+                            _train_data)
+    from gpyreg_tpu_torch.inference import sampling
 
     X, y, xs, hyp = _data(N, M_TEST, SEED)
     gp = _se_gp(D, np.float32)
@@ -263,9 +400,6 @@ def main():
     del g
     torch.cuda.synchronize()
 
-    os.makedirs(os.path.dirname(os.path.abspath(args.trace)), exist_ok=True)
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     span_fns = (
         ("update", lambda: gp.update(hyp=hyp, compute_posterior=True)),
         ("predict", lambda: gp.predict(xs)),
@@ -318,16 +452,8 @@ def main():
         r["device_idle_share_unprofiled"] = (
             1.0 - r["device_busy_ms"] / r["unprofiled_wall_ms"]
         )
-    for name, r in spans.items():
-        print(f"{name}: wall {r['wall_ms']:.1f} ms (host clock "
-              f"{host[name]:.1f} ms), device busy {r['device_busy_ms']:.1f} "
-              f"ms, idle share {r['device_idle_share']:.4f}; without the "
-              f"profiler wall {r['unprofiled_wall_ms']:.1f} ms (runs "
-              f"{', '.join(f'{w:.1f}' for w in r['unprofiled_walls_ms'])}), "
-              f"idle share {r['device_idle_share_unprofiled']:.4f}")
-        for k in r["top_kernels"]:
-            print(f"  {k['ms']:10.2f} ms {100 * k['share_of_wall']:6.2f}%  "
-                  f"{k['name']}")
+    for name in spans:
+        _report(spans, host, name)
 
     ops = {}
     for name, fn in (("nlml_grad_16384", lambda: nlml_grad(gp, hyp)),
@@ -355,8 +481,7 @@ def main():
             print(f"chunk {chunk}: {M_TEST / secs:.1f} pts/s", flush=True)
     finally:
         gp_mod._PREDICT_CHUNK_ELEMS = default
-    print(json.dumps({"card": smi, "spans": spans, "operators": ops,
-                      "chunk_sweep": sweep}))
+    return {"spans": spans, "operators": ops, "chunk_sweep": sweep}
 
 
 if __name__ == "__main__":
