@@ -38,7 +38,11 @@ Phases, each of which raises on failure:
    without TMA); a panel's rows are data rows, at t2 = 0 against
    themselves, where the plain norm expansion leaves a rounding residue
    that the m1 profile turns into a 2e-3 error, so the panel and column
-   checks take held-out rows of the same shapes.  Every self build is
+   checks take held-out rows of the same shapes; and the mesh group's
+   shapes (phase 26), D = 10: a dist_exact slab, N_DE / P x N_DE (8192 x
+   32768 on 4 shards; held-out rows, for the same reason),
+   dist_exact_predict's cross 8192 x 1024, and the ragged last chunk of a
+   shard's config-5 predict, 16384 x 8616 on 4 shards.  Every self build is
    bitwise symmetric with its diagonal
    exactly sf2 * profile(0); each launch is counted on its path's key;
    sf2 and alpha are device tensors, as the main paths pass them, and at
@@ -202,7 +206,50 @@ Phases, each of which raises on failure:
     card within max(1e-3, 10 kappa eps32); then a slice-sampled warped
     fit at fit_sample_bench's size (N = 4096, D = 8), its chain cut as
     fit_sample_config5's (8 samples, burn 4, thin 1), with the checks of
-    the sampled fits.
+    the sampled fits;
+26. the mesh group (``parallel/``), on a mesh of the first 2 or 4 cards
+    where the host has two or more (a power of two keeps every shard's
+    shapes on the TMA paths), else of 4 shards on the one card (printed;
+    at least 2 shards).  The kappa rule is 10 kappa eps32 relative with
+    kappa bounded as in phase 6.  (a) ``dist_exact_fit`` at N = 32768,
+    D = 10 (``_data``'s function, ARD-SE, constant mean, the noise fixed
+    at sn = 0.1), float32, b = 512, with ``algorithm`` "masked_full" and
+    "two_level": the NLML within min(kappa rule, 1e-4) relative of the
+    single-device float32 ``nlz`` and of the float64 ``nlz`` on the card,
+    the two algorithms (one code path) bitwise equal, every slab's strict
+    upper triangle exactly zero, exactly P kernel-tile crosses of
+    (N / P) x N; then a padded fit on the first N_DE_PAD rows (not a
+    multiple of P b: the last shard's padded rows run) within the same
+    rule of the float64 ``nlz`` of those rows, its padded alpha rows
+    exactly zero;
+    ``dist_exact_predict`` at 1,024 points (P crosses of (N / P) x 1024)
+    against the single-device ``GP.predict`` of the same hyperparameters
+    within the kappa rule; prints build + factor, solve and predict
+    seconds, peak memory and the slab bytes a shard; (b) ``GP(mesh=...)``
+    at config 5 (N = 16384, D = 10, 8 samples): ``predict`` at the
+    100,000 test points within 1e-5 of the single-device GP's, relative
+    to max |mu| and to the prior variance, timed beside phase 5's and
+    the single device's, one cross a chunk of each shard's points; ``quad``
+    over 64 measures within the kappa rule of the single device's; (c)
+    ``sharded_nlml_grad`` at bench.py's workload, B = 8 and 7 (padded to
+    the mesh): values and gradients within 1e-6 of ``nlz_grad``'s, B
+    kernel-tile self builds and B gradient tiles; (d) ``GP(mesh=...).fit``
+    at fit_bench's size and options: the MAP objective within max(1e-3,
+    10 kappa eps32) max(1, |f|) of phase 12's, and on a mesh of one card
+    the fit bitwise equal to phase 12's, the launch checks of phase 12;
+    then
+    ``n_chains`` 8 over the mesh (``init_N`` 256, ``opts_N`` 1, 8
+    samples, the chain cut to burn 4, thin 1) with the checks of the
+    sampled fits; (e) ``sharded_cg_weights`` at phase 23's 65,536 rows,
+    D = 4, its MAP, tol 1e-5: the relative residual |r - (K + sn2 I)
+    alpha| / |r| recomputed by the single-device ``_panel_matvec`` at
+    most max(2 tol, twice that of ``cg_posterior_weights``' alpha from
+    the same solve on one device: float32 CG at this conditioning ends
+    with a true residual above its recursion's, printed for both, with a
+    float64 recomputation beside), the mean at its 512 points from alpha
+    within 1e-3 relative of ``cg_posterior_weights``', one kernel-tile
+    cross a 2048-row panel; prints the iterations and ms a sharded
+    matvec beside phase 23's.
 
 For each sampled fit it prints the phase seconds, ``n_evals`` (density
 calls), ms a density, densities a move (``n_evals`` over sweeps and free
@@ -318,6 +365,17 @@ CG_CHAIN = {"n_samples": 3, "thin": 1, "burn": 1, "cg_sample_tol": 1e-2,
 # chain cut as fit_sample_config5's (burn 4, thin 1, 8 samples).
 OW_MAP = {"n_samples": 0, "init_N": 256, "opts_N": 2}
 OW_SAMPLE = {"n_samples": 8, "burn": 4, "thin": 1}
+# The mesh group: its shards on one card; dist_exact at config 5's width
+# with twice its rows (N_DE, panels of DE_B), predict at M_DE points; the
+# sharded CG's iteration cap; the chains of GP(mesh=...).fit at
+# fit_bench's size, 8 of them, cut as fit_sample_config5's chain.
+MESH_SHARDS = 4
+N_DE, DE_B, M_DE = 32768, 512, 1024
+N_DE_PAD = 30000
+MESH_CG_MAX_ITER = 500
+MESH_CHAINS = ("mesh_chains_bench", N_TR, D_TR,
+               {"n_chains": 8, "n_samples": 8, "burn": 4, "thin": 1,
+                "init_N": 256, "opts_N": 1})
 VJP_COVS = ("se", "m1", "m3", "m5", "rq", "se_iso", "m1_iso")
 # Kernel (direct differences) vs the plain norm-expansion version in
 # float32, the tolerance of tests/test_fused_kernel.py:46.
@@ -364,7 +422,7 @@ def _train_data(n, seed):
     return (a.astype(np.float64) for a in (X, y, hyps))
 
 
-def _se_gp(d, dtype, device=None, outwarp=None):
+def _se_gp(d, dtype, device=None, outwarp=None, mesh=None):
     import gpyreg_tpu_torch as gt
 
     return gt.GP(
@@ -375,6 +433,7 @@ def _se_gp(d, dtype, device=None, outwarp=None):
         dtype=dtype,
         outwarp=outwarp,
         device=DEV if device is None else device,
+        mesh=mesh,
     )
 
 
@@ -495,7 +554,7 @@ def _one_launch(TK, key, fn):
     return out
 
 
-def phase_kernel_vs_plain(X, xs, X_tr, cg):
+def phase_kernel_vs_plain(X, xs, X_tr, cg, extra):
     from gpyreg_tpu_torch.ops import tile_kernels as TK
 
     chunk, tail = _chunks()
@@ -566,6 +625,8 @@ def phase_kernel_vs_plain(X, xs, X_tr, cg):
         ("cg_cross_8192", "cross", (Xcb, Zcb, False, 20)),
         ("cg_column_8192", "cross_unaligned",
          (Xcb, Zcb[:1].contiguous(), False, 50)),
+        # The mesh group's shapes (_mesh_checks).
+        *extra,
     ):
         for base in TK.PROFILES:
             K = _one_launch(TK, key, lambda: TK.kernel_cross(
@@ -727,7 +788,7 @@ def phase_slice(X, y, xs, hyp):
             "cross": S * n_chunks}
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
-    return gp, launches
+    return gp, launches, t_pred
 
 
 def _kappa_bounds(X, hyps):
@@ -1341,7 +1402,7 @@ def phase_fit(name, n, d, options, compare_float64):
                                  f"with float64")
     return {"launches": launches, "timings": dict(tm), "wall": wall,
             "nit": [r.nit for r in restarts],
-            "stop": [r.stop for r in restarts]}
+            "stop": [r.stop for r in restarts], "fun": res.fun, "hyp": hyp}
 
 
 class _CountingStream:
@@ -1855,7 +1916,7 @@ def phase_cg_65536(data, mv):
     return {"fit_launches": fit_launches, "fit_matvecs": fit_mv,
             "pred_launches": pred_launches, "pred_matvecs": pred_mv,
             "timings": dict(tm), "cg_iters": iters.tolist(), "mv_ms": mv_ms,
-            "predict_s": t_pred, "peak": peak, "report": rep}
+            "predict_s": t_pred, "peak": peak, "report": rep, "hyp": hyp[0]}
 
 
 def _hutchinson_se(spec, h, Xd, yd, sol, key):
@@ -2126,6 +2187,446 @@ def phase_outwarp(windows):
             "predict_s": t_pred}
 
 
+def _smoke_mesh():
+    """The mesh of the mesh group: the first 2 or 4 cards of a host with
+    several (a power of two, so that every shard's shapes stay on the TMA
+    paths), else 4 shards on the one card."""
+    from gpyreg_tpu_torch.parallel.mesh import make_mesh
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        P = 4 if count >= 4 else 2
+        mesh = make_mesh(devices=[torch.device("cuda", i) for i in range(P)])
+        how = f"{P} cards of {count}"
+    else:
+        mesh = make_mesh(devices=[torch.device("cuda", 0)] * MESH_SHARDS)
+        how = f"{MESH_SHARDS} shards on the one card"
+    print(f"mesh: {mesh} ({how})")
+    if mesh.size < 2:
+        raise AssertionError("mesh: fewer than 2 shards")
+    return mesh
+
+
+def _mesh_predict_chunks(mesh):
+    """GP.predict's chunks of config 5's 100k test points on ``mesh``:
+    (chunk, the full chunks of all shards, the ragged last chunks of all
+    shards, the ragged chunk's width)."""
+    from gpyreg_tpu_torch.gp import _PREDICT_CHUNK_ELEMS
+
+    chunk = min(-(-M_TEST // mesh.size), _PREDICT_CHUNK_ELEMS // N)
+    sizes = [b - a for a, b in mesh.slices(M_TEST)]
+    tails = {n % chunk for n in sizes if n % chunk}
+    if len(tails) > 1:
+        raise AssertionError(f"mesh: shards of {sizes} points")
+    return (chunk, sum(n // chunk for n in sizes),
+            sum(1 for n in sizes if n % chunk), tails.pop() if tails else 0)
+
+
+def _se_spec(d):
+    from gpyreg_tpu_torch.core.model import ModelSpec
+
+    return ModelSpec(D=d, cov="se", mean="const", noise_constant=True,
+                     noise_user=0, noise_rectified=False)
+
+
+def _de_data():
+    """dist_exact's inputs: _data at N_DE rows, the noise fixed at 0.1."""
+    X, y, xs, hyp = _data(N_DE, M_DE, SEED + 13)
+    h = hyp[0].copy()
+    h[D + 1] = np.log(0.1)
+    return X, y, xs, h
+
+
+def phase_mesh_dist_exact(mesh, data):
+    """Mesh group (a): dist_exact at config 5's width (module docstring,
+    phase 26a)."""
+    from gpyreg_tpu_torch.core.nlml import nlz
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+    from gpyreg_tpu_torch.parallel import dist_exact as DE
+    from gpyreg_tpu_torch.parallel.mesh import all_gather
+
+    X, y, xs, h = data
+    spec = _se_spec(D)
+    P = mesh.size
+    Np, rows, _ = DE.plan(N_DE, P, DE_B)
+    kappa = _kappa_bounds(X, [h])[0]
+    rel = min(10.0 * kappa * EPS32, 1e-4)
+    refs = {}
+    for dtype, n in ((torch.float32, N_DE), (torch.float64, N_DE),
+                     ("pad", N_DE_PAD)):
+        dt = torch.float64 if dtype == "pad" else dtype
+        Xd = torch.as_tensor(X[:n], dtype=dt, device=DEV)
+        yd = torch.as_tensor(y[:n], dtype=dt, device=DEV)
+        with torch.no_grad():
+            refs[dtype] = float(nlz(spec, h, Xd, yd, None))
+        del Xd, yd
+        torch.cuda.empty_cache()
+    X32, y32 = X.astype(np.float32), y.astype(np.float32)
+    out, posts = {}, {}
+    for alg in DE.ALGORITHMS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tm = {}
+        post, _, launches = _synced(lambda: DE.dist_exact_fit(
+            spec, mesh, h, X32, y32, b=DE_B, algorithm=alg, timings=tm))
+        peak = torch.cuda.max_memory_allocated()
+        nlml = float(post.nlml)
+        upper = sum(int(torch.count_nonzero(torch.triu(s, i * rows + 1)))
+                    for i, s in enumerate(post.slabs))
+        errs = {k: abs(nlml - v) / abs(v) for k, v in
+                (("float32", refs[torch.float32]),
+                 ("float64", refs[torch.float64]))}
+        print(f"dist_exact {alg}: N={N_DE} D={D} float32 b={DE_B} on {P} "
+              f"shards (Np {Np}, slab {rows}x{Np} = {rows * Np * 4 / 1e9:.3f} "
+              f"GB a shard, {P * rows * Np * 4 / 1e9:.3f} GB in all): build + "
+              f"factor {tm['factor_s']:.3f} s, solves {tm['solve_s']:.3f} s; "
+              f"peak {peak / 2**30:.2f} GiB; launches {launches}; NLML "
+              f"{nlml:.6f}, single-device float32 {refs[torch.float32]:.6f} "
+              f"(rel {errs['float32']:.3e}), float64 {refs[torch.float64]:.6f} "
+              f"(rel {errs['float64']:.3e}), tol {rel:.3e} (min(10 kappa "
+              f"eps32, 1e-4), kappa(G) <= {kappa:.1f}); nonzeros above the "
+              f"diagonal {upper}")
+        _expect(f"dist_exact {alg}", launches, cross=P)
+        if not (max(errs.values()) <= rel and upper == 0):
+            raise AssertionError(f"dist_exact {alg}: NLML or factor")
+        out[alg] = {"launches": launches, "timings": tm, "peak": peak,
+                    "nlml": nlml}
+        posts[alg] = post
+    a, b = (out[k]["nlml"] for k in DE.ALGORITHMS)
+    if a != b:
+        raise AssertionError("dist_exact: the two algorithms disagree")
+    del posts["two_level"]
+    torch.cuda.empty_cache()
+
+    post_p, _, launches = _synced(lambda: DE.dist_exact_fit(
+        spec, mesh, h, X32[:N_DE_PAD], y32[:N_DE_PAD], b=DE_B))
+    nlml = float(post_p.nlml)
+    err = abs(nlml - refs["pad"]) / abs(refs["pad"])
+    pad_alpha = all_gather(post_p.alphas, DEV)[N_DE_PAD:]
+    rows_p = post_p.Np // P
+    upper = sum(int(torch.count_nonzero(torch.triu(s, i * rows_p + 1)))
+                for i, s in enumerate(post_p.slabs))
+    print(f"dist_exact padded: N={N_DE_PAD} on {P} shards (Np {post_p.Np}, "
+          f"{post_p.Np - N_DE_PAD} padded rows); launches {launches}; NLML "
+          f"{nlml:.6f}, float64 single device {refs['pad']:.6f} (rel "
+          f"{err:.3e}, tol {rel:.3e}); padded alpha rows nonzero "
+          f"{int(torch.count_nonzero(pad_alpha))}; nonzeros above the "
+          f"diagonal {upper}")
+    _expect("dist_exact padded", launches, cross=P)
+    if not (post_p.Np > N_DE_PAD and err <= rel and upper == 0
+            and not bool(torch.any(pad_alpha != 0))):
+        raise AssertionError("dist_exact padded: NLML or padding")
+    del post_p
+    torch.cuda.empty_cache()
+
+    post = posts["masked_full"]
+    del posts
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (mu, s2), _, launches = _synced(lambda: DE.dist_exact_predict(post, xs))
+    t_pred = time.perf_counter() - t0
+    del post
+    torch.cuda.empty_cache()
+    gp = _se_gp(D, np.float32)
+    gp.update(X_new=X, y_new=y, hyp=h[None], compute_posterior=True)
+    mu1, s21 = gp.predict(xs)
+    del gp
+    torch.cuda.empty_cache()
+    err_mu = float(np.max(np.abs(mu - mu1[:, 0])))
+    err_s2 = float(np.max(np.abs(s2 - s21[:, 0])))
+    tol_mu = rel * max(1.0, float(np.max(np.abs(mu1))))
+    tol_s2 = rel * float(np.exp(2 * h[D]))
+    print(f"  dist_exact_predict at {M_DE} points: {t_pred:.3f} s, launches "
+          f"{launches}; against the single-device GP.predict: max|dmu| "
+          f"{err_mu:.3e} (tol {tol_mu:.3e}), max|ds2| {err_s2:.3e} (tol "
+          f"{tol_s2:.3e})")
+    _expect("dist_exact_predict", launches, cross=P)  # one chunk of M_DE
+    if not (mu.shape == s2.shape == (M_DE,) and np.all(np.isfinite(mu))
+            and np.all(s2 >= 0) and err_mu <= tol_mu and err_s2 <= tol_s2):
+        raise AssertionError("dist_exact_predict disagrees with GP.predict")
+    out["predict"] = {"launches": launches, "secs": t_pred}
+    out["shape"] = (rows, Np)
+    return out
+
+
+def phase_mesh_serving(mesh, t_pred_slice):
+    """Mesh group (b): GP(mesh=...) serving at config 5 (module docstring,
+    phase 26b)."""
+    X, y, xs, hyp = _data(N, M_TEST, SEED)
+    P = mesh.size
+    out = {}
+    for name, m in (("single", None), ("mesh", mesh)):
+        gp = _se_gp(D, np.float32, mesh=m)
+        gp.update(X_new=X, y_new=y, hyp=hyp, compute_posterior=True)
+        torch.cuda.synchronize()
+        (mu, s2), secs, launches = _synced(
+            lambda: gp.predict(xs, separate_samples=True))
+        F, V = gp.quad(xs[:M_QUAD], 0.5, compute_var=True,
+                       separate_samples=True)
+        out[name] = {"mu": mu, "s2": s2, "F": F, "V": V, "secs": secs,
+                     "launches": launches}
+        del gp
+        torch.cuda.empty_cache()
+    chunk, n_full, n_tail, tail = _mesh_predict_chunks(mesh)
+    m, s = out["mesh"], out["single"]
+    print(f"mesh serving: config 5 (N={N} D={D} S={S} float32), predict at "
+          f"{M_TEST} points on {P} shards {m['secs']:.3f} s = "
+          f"{M_TEST / m['secs']:.1f} pts/s ({n_full} chunks of {chunk} and "
+          f"{n_tail} of {tail} a sample; launches {m['launches']}), single "
+          f"device {s['secs']:.3f} s here, {t_pred_slice:.3f} s in phase 5")
+    _expect("mesh predict", m["launches"], cross=S * (n_full + n_tail))
+    sf2 = float(np.exp(2 * hyp[:, D].max()))
+    err_mu = float(np.max(np.abs(m["mu"] - s["mu"])))
+    err_s2 = float(np.max(np.abs(m["s2"] - s["s2"])))
+    tol_mu = 1e-5 * float(np.max(np.abs(s["mu"])))
+    print(f"  against the single-device predict: max|dmu| {err_mu:.3e} (tol "
+          f"{tol_mu:.3e}), max|ds2| {err_s2:.3e} (tol {1e-5 * sf2:.3e})")
+    if not (err_mu <= tol_mu and err_s2 <= 1e-5 * sf2):
+        raise AssertionError("mesh predict disagrees with the single device")
+    kappa = max(_kappa_bounds(X, hyp[:S_FULL]))
+    rel = 10.0 * kappa * EPS32
+    err_F = float(np.max(np.abs(m["F"] - s["F"])))
+    err_V = float(np.max(np.abs(m["V"] - s["V"])))
+    tol_F = rel * max(1.0, float(np.max(np.abs(s["F"]))))
+    tol_V = rel * max(1.0, float(np.max(np.abs(s["V"]))))
+    print(f"  quad over {M_QUAD} measures on the mesh against the single "
+          f"device: max|dF| {err_F:.3e} (tol {tol_F:.3e}), max|dV| "
+          f"{err_V:.3e} (tol {tol_V:.3e}; kappa(G) <= {kappa:.1f})")
+    if not (err_F <= tol_F and err_V <= tol_V):
+        raise AssertionError("mesh quad disagrees with the single device")
+    return {"launches": m["launches"], "secs": m["secs"],
+            "single_secs": s["secs"], "full": S * n_full, "tail": S * n_tail}
+
+
+def phase_mesh_nlml_grad(mesh, X, y, hyps):
+    """Mesh group (c): sharded_nlml_grad at bench.py's workload (module
+    docstring, phase 26c)."""
+    from gpyreg_tpu_torch.core.nlml import get_fns
+    from gpyreg_tpu_torch.parallel.mesh import sharded_nlml_grad
+
+    spec = _se_spec(D_TR)
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=DEV)
+    yd = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    nlz_grad = get_fns(spec, False, False)["nlz_grad"]
+    total = dict.fromkeys(("self", "vjp"), 0)
+    for B in (B_TR, B_TR - 1):
+        (v, g), secs, launches = _synced(
+            lambda: sharded_nlml_grad(spec, mesh, hyps[:B], Xd, yd))
+        (v1, g1), secs1, _ = _synced(lambda: nlz_grad(hyps[:B], Xd, yd))
+        _check_finite(v, g, B, D_TR + 3, "sharded_nlml_grad")
+        err_v = (torch.max(torch.abs(v - v1)) / torch.max(torch.abs(v1))).item()
+        err_g = (torch.max(torch.abs(g - g1))
+                 / torch.clamp(torch.max(torch.abs(g1)), min=1.0)).item()
+        print(f"sharded_nlml_grad: N={N_TR} D={D_TR} B={B} float32 on "
+              f"{mesh.size} shards {secs:.4f} s ({B / secs:.2f} evals/s; single "
+              f"device {secs1:.4f} s); launches {launches}; against nlz_grad: "
+              f"values {err_v:.3e}, gradients {err_g:.3e} (tol 1e-6)")
+        _expect("sharded_nlml_grad", launches, self=B, vjp=B)
+        if not (err_v <= 1e-6 and err_g <= 1e-6):
+            raise AssertionError("sharded_nlml_grad disagrees with nlz_grad")
+        for k in total:
+            total[k] += launches[k]
+    return {"launches": total}
+
+
+def phase_mesh_fit(mesh, fit_b, windows):
+    """Mesh group (d): GP(mesh=...).fit at fit_bench's size, MAP then the
+    chains (module docstring, phase 26d)."""
+    from gpyreg_tpu_torch.ops import tile_kernels as TK
+
+    n, d, options = FIT_BENCH
+    X, y = _fit_data(n, d, SEED + 3)
+    gp = _se_gp(d, np.float32, mesh=mesh)
+    np.random.seed(SEED)
+    torch.cuda.synchronize()
+    TK.reset_launches()
+    t0 = time.perf_counter()
+    hyp, res, _ = gp.fit(X, y, options=dict(options))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(TK.LAUNCHES)
+    f1 = fit_b["fun"]
+    kappa = _kappa(torch.as_tensor(X, device=DEV), hyp[0])
+    tol = max(1e-3, 10.0 * kappa * EPS32) * max(1.0, abs(f1))
+    same = bool(np.array_equal(hyp, fit_b["hyp"]) and res.fun == f1)
+    one_card = all(d == torch.device("cuda", 0) for d in mesh.devices)
+    nit = sum(r.nit for r in gp.fit_report["restarts"])
+    print(f"mesh fit_bench: N={n} D={d} float32 on {mesh.size} shards, options "
+          f"{options}: {wall:.3f} s (single device {fit_b['wall']:.3f} s), "
+          f"timings {gp.fit_timings}; launches {launches}; MAP objective "
+          f"{res.fun:.6f}, single device {f1:.6f} (|d| "
+          f"{abs(res.fun - f1):.3e}, tol {tol:.3e}); bitwise equal to the "
+          f"single-device fit: {same}")
+    if not (abs(res.fun - f1) <= tol and (same or not one_card)
+            and launches["vjp"] >= nit
+            and launches["self"] >= options.get("init_N", 1024) + launches["vjp"]
+            and launches["cross"] == 0
+            and not any(v for k, v in launches.items()
+                        if k.endswith("_unaligned"))):
+        raise AssertionError("mesh fit_bench: objective or launches")
+    del gp
+    torch.cuda.empty_cache()
+    samp = phase_fit_sample(*MESH_CHAINS, windows,
+                            gp=_se_gp(d, np.float32, mesh=mesh))[2]
+    if samp["sr"]["n_chains"] != MESH_CHAINS[3]["n_chains"]:
+        raise AssertionError("mesh chains: wrong number of chains")
+    return {"launches": launches, "wall": wall, "same": same, "chains": samp}
+
+
+def phase_mesh_cg(mesh, data, hyp, mv, mv_ms_23):
+    """Mesh group (e): sharded_cg_weights at the CG tier's N (module
+    docstring, phase 26e)."""
+    from gpyreg_tpu_torch.core.model import cov_matrix, mean_value
+    from gpyreg_tpu_torch.ops import iterative as IT
+    from gpyreg_tpu_torch.parallel import mesh as PM
+
+    X, y, xs = data[:3]
+    count, plain_mv = mv
+    spec = _se_spec(D_CG)
+    rc = CG_OPTS["cg_row_chunk"]
+    tol, max_iter = CG_OPTS["cg_predict_tol"], MESH_CG_MAX_ITER
+    Xd = torch.as_tensor(X, dtype=torch.float32, device=DEV)
+    yd = torch.as_tensor(y, dtype=torch.float32, device=DEV)
+    h = torch.as_tensor(hyp, dtype=torch.float32, device=DEV)
+    count[0] = 0
+    (alpha, res, iters), secs, launches = _synced(
+        lambda: PM.sharded_cg_weights(spec, mesh, hyp, Xd, yd, tol=tol,
+                                      max_iter=max_iter))
+    calls = count[0]
+    with torch.no_grad():
+        hc, _, hm = spec.split_hyp(h)
+        sn2 = torch.full((N_CG,), float(np.exp(2 * hyp[D_CG + 1])), device=DEV)
+        (a1, res1, it1), secs1, _ = _synced(lambda: IT.cg_posterior_weights(
+            spec, hyp, Xd, yd, None, tol=tol, row_chunk=rc, max_iter=max_iter))
+
+        def true_resid(a, dtype):
+            """|r - (K + sn2 I) a| / |r| by the single-device matvec."""
+            Xt, ht, st = Xd.to(dtype), h.to(dtype), sn2.to(dtype)
+            r = yd.to(dtype) - mean_value(spec, spec.split_hyp(ht)[2], Xt)[:, None]
+            Ka = plain_mv(spec, spec.split_hyp(ht)[0], Xt, a.to(dtype), st, rc)
+            return (torch.linalg.norm(r - Ka) / torch.linalg.norm(r)).item()
+
+        resid = {(w, dt): true_resid(a, dt) for w, a in (("mesh", alpha),
+                                                          ("single", a1))
+                 for dt in (torch.float32, torch.float64)}
+        Zs = torch.as_tensor(xs, dtype=torch.float32, device=DEV)
+        Ks = cov_matrix(spec, hc, Xd, Z=Zs)
+        m0 = mean_value(spec, hm, Zs)
+        mu, mu1 = m0 + (Ks.T @ alpha)[:, 0], m0 + (Ks.T @ a1)[:, 0]
+        err_mu = (torch.max(torch.abs(mu - mu1))
+                  / torch.max(torch.abs(mu1))).item()
+        op = PM._RowOperator(spec, mesh, hc, Xd, sn2, torch.ones_like(sn2))
+        V = torch.randn((N_CG, 1 + CG_OPTS["cg_n_probes"]), device=DEV)
+        mv_ms = _time_ms(lambda: op(V), 5)
+    bound = max(2 * tol, 2 * resid[("single", torch.float32)])
+    print(f"sharded_cg_weights: N={N_CG} D={D_CG} float32 on {mesh.size} "
+          f"shards, tol {tol}: {secs:.3f} s, {iters} iterations ({calls} shard "
+          f"matvecs), CG residual {res.max().item():.3e}; launches {launches}; "
+          f"single device cg_posterior_weights {secs1:.3f} s, {it1} iterations, "
+          f"CG residual {res1.max().item():.3e}")
+    print(f"  residual recomputed by the single-device matvec, float32 / "
+          f"float64: sharded alpha "
+          f"{resid[('mesh', torch.float32)]:.3e} / "
+          f"{resid[('mesh', torch.float64)]:.3e}, single-device alpha "
+          f"{resid[('single', torch.float32)]:.3e} / "
+          f"{resid[('single', torch.float64)]:.3e}; bound max(2 tol, twice "
+          f"the single device's) {bound:.3e}; mean at {M_CG} points against "
+          f"the single device's: {err_mu:.3e} "
+          f"(tol 1e-3); ms a sharded matvec (9 columns, as phase 23's) "
+          f"{mv_ms:.3f} ms, phase 23's single-device matvec {mv_ms_23:.3f} ms")
+    panels = -(-(N_CG // mesh.size) // PM._ROW_CHUNK)
+    _expect("sharded_cg_weights", launches, cross=iters * mesh.size * panels)
+    if not (calls == mesh.size * iters and err_mu <= 1e-3
+            and resid[("mesh", torch.float32)] <= bound
+            and bool(torch.all(torch.isfinite(alpha)))):
+        raise AssertionError("sharded_cg_weights: residual, mean or matvecs")
+    return {"launches": launches, "iters": iters, "secs": secs,
+            "mv_ms": mv_ms}
+
+
+def phase_mesh(mesh, de_data, t_pred_slice, X_tr, y_tr, hyps_tr, fit_b, cg,
+               cg_data, mv, windows):
+    """The mesh group (module docstring, phase 26), with its seconds."""
+    t0 = time.perf_counter()
+    out = {"dist_exact": phase_mesh_dist_exact(mesh, de_data)}
+    torch.cuda.empty_cache()
+    out["serving"] = phase_mesh_serving(mesh, t_pred_slice)
+    torch.cuda.empty_cache()
+    out["nlml_grad"] = phase_mesh_nlml_grad(mesh, X_tr, y_tr, hyps_tr)
+    out["fit"] = phase_mesh_fit(mesh, fit_b, windows)
+    torch.cuda.empty_cache()
+    out["cg"] = phase_mesh_cg(mesh, cg_data, cg["hyp"], mv, cg["mv_ms"])
+    print(f"mesh group: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _mesh_checks(mesh, X, xs, de_data):
+    """Phase 3's checks of the kernel-tile shapes that only the mesh group
+    runs: a dist_exact slab (held-out rows of the slab's shape against the
+    N_DE rows: a slab's rows are data rows, at t2 = 0 against themselves),
+    dist_exact_predict's cross and the ragged last chunk of a shard's
+    predict."""
+    from gpyreg_tpu_torch.parallel.dist_exact import plan
+
+    rows = plan(N_DE, mesh.size, DE_B)[1]
+    Xde, _, xsde, _ = de_data
+    held = np.random.default_rng(SEED + 14).normal(size=(rows, D))
+    tail = _mesh_predict_chunks(mesh)[3]
+    Xs, Xd, Hd, Zd, Zt = (torch.as_tensor(a, dtype=torch.float32, device=DEV)
+                          for a in (X, Xde, held, xsde, xs[:tail]))
+    return (("de_slab", "cross", (Hd, Xd, False, 5)),
+            ("de_pred", "cross", (Xd[:rows], Zd, False, 20)),
+            ("mesh_cross_tail", "cross", (Xs, Zt, False, 10)))
+
+
+def _kernels_line_slice9(kern, vjp, mg):
+    """The kernels line's entries for the mesh group: each use of a kernel
+    with the launches it made there, at the shape it ran."""
+    from gpyreg_tpu_torch.ops.tile_kernels import PROFILES
+
+    tile = ("gpyreg_tpu_torch/csrc/kernel_tile.cu",
+            "gpyreg_tpu/ops/pallas_kernels.py:99")
+    vjpk = ("gpyreg_tpu_torch/csrc/kernel_vjp.cu",
+            "gpyreg_tpu/ops/pallas_kernels.py:184")
+    de, fit = mg["dist_exact"], mg["fit"]
+    chains = fit["chains"]["launches"]
+    out = []
+    for use, key, launches, path in (
+        ("mesh dist_exact build masked_full", "de_slab",
+         de["masked_full"]["launches"]["cross"], "cross"),
+        ("mesh dist_exact build two_level", "de_slab",
+         de["two_level"]["launches"]["cross"], "cross"),
+        ("mesh dist_exact_predict", "de_pred",
+         de["predict"]["launches"]["cross"], "cross"),
+        ("mesh config-5 predict", "cross", mg["serving"]["full"], "cross"),
+        ("mesh config-5 predict last chunk", "mesh_cross_tail",
+         mg["serving"]["tail"], "cross"),
+        ("mesh sharded_nlml_grad self", "self_train",
+         mg["nlml_grad"]["launches"]["self"], "self"),
+        ("mesh fit_bench self", "self_train", fit["launches"]["self"], "self"),
+        ("mesh chains_bench self", "self_train", chains["self"], "self"),
+        ("mesh sharded_cg_weights panel", "cg_panel",
+         mg["cg"]["launches"]["cross"], "cross"),
+    ):
+        err, ms, plain_ms, n, m, d = kern[(key, "se")]
+        e = _entry(f"kernel_tile[{use}, se, {n}x{m}, D={d}]", *tile, launches,
+                   err, ms, plain_ms, _tile_bound(n, m, d, self_cov=path == "self"))
+        e["max_abs_err_all_profiles"] = max(kern[(key, b)][0] for b in PROFILES)
+        e["dispatch"] = "tma"
+        out.append(e)
+    for use, launches in (
+        ("mesh sharded_nlml_grad", mg["nlml_grad"]["launches"]["vjp"]),
+        ("mesh fit_bench", fit["launches"]["vjp"]),
+        ("mesh chains_bench", chains["vjp"]),
+    ):
+        err, rel, ms, plain_ms, n, d = vjp[("bench", "se")]
+        e = _entry(f"kernel_vjp[{use}, se, N={n}, D={d}]", *vjpk, launches, err,
+                   ms, plain_ms, _vjp_bound(n, d, False))
+        e["max_rel_err_all_profiles"] = max(vjp[("bench", c)][1] for c in VJP_COVS)
+        out.append(e)
+    return out
+
+
 def _entry(name, source, replaces, launches, err, ms, plain_ms, bound):
     return {
         "name": name,
@@ -2344,13 +2845,16 @@ def main():
     X, y, xs, hyp = _data(N, M_TEST, SEED)
     X_tr, y_tr, hyps_tr = _train_data(N_TR, SEED)
     cg_data = _cg_data()
-    kern = phase_kernel_vs_plain(X, xs, X_tr, cg_data)
+    mesh = _smoke_mesh()
+    de_data = _de_data()
+    kern = phase_kernel_vs_plain(X, xs, X_tr, cg_data,
+                                 _mesh_checks(mesh, X, xs, de_data))
     vjp = phase_vjp_vs_plain((("bench", X_tr, y_tr, hyps_tr[0]),
                               ("bench_unaligned", X_tr[:N_TR - 1],
                                y_tr[:N_TR - 1], hyps_tr[0]),
                               ("config5", X, y, hyp[0])))
     torch.cuda.empty_cache()
-    gp, serve_launches = phase_slice(X, y, xs, hyp)
+    gp, serve_launches, t_pred_slice = phase_slice(X, y, xs, hyp)
     phase_full_size_accuracy(gp, X, y, xs, hyp)
     cfg5 = phase_train_config5(gp, hyp)
     rest = phase_serving_rest(gp, X, y, xs, hyp)
@@ -2397,11 +2901,15 @@ def main():
     fid = phase_cg_fidelity(cg_data, mv)
     torch.cuda.empty_cache()
     ow = phase_outwarp(windows)
+    torch.cuda.empty_cache()
+    mg = phase_mesh(mesh, de_data, t_pred_slice, X_tr, y_tr, hyps_tr, fit_b,
+                    cg, cg_data, mv, windows)
 
     print(json.dumps({"kernels": _kernels_line(kern, vjp, serve_launches,
                                                 bench, cfg5, fit_b, fit_5,
                                                 samp, rest)
-                      + _kernels_line_slice8(kern, vjp, cg, fid, ow)}))
+                      + _kernels_line_slice8(kern, vjp, cg, fid, ow)
+                      + _kernels_line_slice9(kern, vjp, mg)}))
     print(f"wall: {time.perf_counter() - t_start:.1f} s")
     print(f"card (name, power limit): {smi}")
     print(json.dumps({

@@ -19,10 +19,12 @@ refit, the host ``SliceSampler``, MALA, HMC and ensemble slice
 sampling), and the rest of serving: the rank-1 ``update``,
 ``predict_full``, ``quad``, ``random_function``, ``predict_quantile``,
 ``fmin``, ``sample`` and ``plot``; output warping
-(``outwarp_functions``, ``GP(..., outwarp=...)``) and the matrix-free
+(``outwarp_functions``, ``GP(..., outwarp=...)``), the matrix-free
 tier (``ops.iterative``, ``GP.fit(options={"method": "cg"})`` and
-``"auto"``, whose CG panels the kernel tile builds).  ``ROADMAP.md``
-lists what is still to come (the mesh tier).
+``"auto"``, whose CG panels the kernel tile builds) and the multi-device
+tier (``parallel``: ``GP(..., mesh=...)`` shards predict, quad and fit
+over a mesh of devices, and ``parallel.dist_exact`` builds, factors and
+serves the exact GP row-sharded over it).
 """
 
 from . import covariance_functions
@@ -31,6 +33,7 @@ from . import isotropic_covariance_functions
 from . import mean_functions
 from . import noise_functions
 from . import outwarp_functions
+from . import parallel
 from . import slice_sample
 from .gp import GP, Posterior
 

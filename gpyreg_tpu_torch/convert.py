@@ -8,9 +8,12 @@ keys without their prefix), and rebuilds the posterior on ``device``.
 The bounds, the prior table and ``no_prior`` come across too, so that
 ``log_posterior`` gives the numbers of the GP they came from.
 ``GP.load`` reads a ``.npz`` written by either package through it.
+:func:`dist_exact_from_arrays` does the same for a row-sharded exact
+posterior (``gpyreg_tpu.parallel.dist_exact.DistExactPosterior``).
 """
 
 import numpy as np
+import torch
 
 from . import covariance_functions as cf
 from . import isotropic_covariance_functions as icf
@@ -18,6 +21,7 @@ from . import mean_functions as mf
 from . import noise_functions as nf
 from . import outwarp_functions as owf
 from .gp import GP
+from .parallel.dist_exact import DistExactPosterior
 
 _MEANS = {
     "zero": mf.ZeroMean,
@@ -139,3 +143,31 @@ def gp_from_arrays(meta, X, y, s2, hyp, device=None, compute_posterior=True,
             and y is not None,
         )
     return gp
+
+
+def dist_exact_from_arrays(spec, mesh, b, n_real, hyp, X, slab, alpha, sW,
+                           nlml=None):
+    """A port ``DistExactPosterior`` over ``mesh`` from the arrays of the
+    JAX package's (``b``, ``n_real``, ``hyp`` and, as numpy, the padded
+    inputs ``X`` (Np, D), the lower factor ``slab`` (Np, Np), ``alpha``
+    (Np, 1), ``sW`` (Np,) and ``nlml``), in their dtype: shard i takes
+    its rows of the factor and of alpha onto ``mesh.devices[i]``.  ``spec``
+    is the port's ``core.model.ModelSpec`` of the same model."""
+    Np = int(np.shape(slab)[0])
+    rows = Np // mesh.size
+    home = mesh.devices[0]
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a))
+
+    slab, alpha = tensor(slab), tensor(alpha)
+    return DistExactPosterior(
+        spec, mesh, int(b), Np, int(n_real),
+        np.asarray(hyp, dtype=np.float64), tensor(X).to(home),
+        [slab[i * rows : (i + 1) * rows].to(d)
+         for i, d in enumerate(mesh.devices)],
+        [alpha[i * rows : (i + 1) * rows].to(d)
+         for i, d in enumerate(mesh.devices)],
+        tensor(sW).to(home),
+        None if nlml is None else tensor(nlml).to(home),
+    )

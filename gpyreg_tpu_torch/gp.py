@@ -42,21 +42,28 @@ branch :1238-1262, ``_require_factors`` and ``_cg_serve`` :1299-1343,
 unwarped ``y`` and serves it as if it were warped (``ops/iterative.py:
 435-444`` never warps, ``gp.py:2240-2259`` back-transforms).
 
-Left out, with the JAX package's lines:
+The mesh (``mesh``, :312-323; ``parallel/mesh.py``): ``predict`` shards
+the test points (:1981-2012) and ``quad`` the measures (:2355-2377)
+over it, one sample's factors replicated on each shard's device; ``fit``
+shards the design rows and the restart lanes
+(``inference/map_optimize.py``) and the chains of ``n_chains`` and of
+the slicelite refit (``inference/device_slice.py``).  ``update``,
+``predict_full``, ``random_function`` and the rest run on the GP's
+device, as in JAX.
 
-- until a later slice: the mesh tier (``mesh``, :312-323, :1981-2012,
-  ``quad``'s mesh block :2355-2377);
-- for good, being TPU-only: ``mxu_predict`` (:301-311, :527-538),
-  ``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
-  compiled XLA programs, so the rank-1 update grows each factor by one
-  row and column instead of writing into padding, and needs no
-  bucket-full rule, :1104-1107), the stacked-factor cache
-  ``_stack_cache`` and the live-GP HBM pre-flight with ``fit``'s warning
-  and ``_device_factor_bytes`` (:169-237, :350-375, :518-551,
-  :1521-1542), the compile log and ``fit_timings``' ``n_compiles`` /
-  ``compile_s`` (:1392-1400), and ``fit``'s ``trace_dir`` option
-  (:1505-1509, a hook into the JAX profiler;
-  ``tools/profile_torch_slice.py`` profiles a fit).
+Left out, with the JAX package's lines, for good, being TPU-only:
+``mxu_predict`` (:301-311, :527-538) and its composition with the mesh
+(``mxu_mesh``, :1994-1997),
+``pad_bucket`` shape bucketing (:288-296, :392-461; it exists to reuse
+compiled XLA programs, so the rank-1 update grows each factor by one
+row and column instead of writing into padding, and needs no
+bucket-full rule, :1104-1107), the stacked-factor cache
+``_stack_cache`` and the live-GP HBM pre-flight with ``fit``'s warning
+and ``_device_factor_bytes`` (:169-237, :350-375, :518-551,
+:1521-1542), the compile log and ``fit_timings``' ``n_compiles`` /
+``compile_s`` (:1392-1400), and ``fit``'s ``trace_dir`` option
+(:1505-1509, a hook into the JAX profiler;
+``tools/profile_torch_slice.py`` profiles a fit).
 """
 
 import time
@@ -81,6 +88,7 @@ from .inference import fit_phases as _fit_phases
 from .inference import map_optimize as _map_optimize
 from .inference import sampling as _sampling
 from .ops.linalg import neg_inverse_from_chol
+from .parallel.mesh import make_mesh
 from .serving import (
     _post_small,
     _scaled_upper_batch,
@@ -91,9 +99,11 @@ from .serving import (
     inv_branch_full,
     mean_branch,
     predict_chunked,
+    predict_sharded,
     prior_branch,
     prior_branch_full,
     quad_moments,
+    quad_sharded,
     random_draw,
     random_prior_draw,
 )
@@ -210,6 +220,11 @@ class GP:
     device : torch.device or str
         Where the factors live and the work runs: the CUDA card by
         default (raising when there is none), ``"cpu"`` on request.
+    mesh : :class:`gpyreg_tpu_torch.parallel.mesh.Mesh` or int
+        Shards ``predict``, ``quad`` and ``fit``'s design, restarts and
+        chains over the mesh's devices (see the module docstring); an int
+        builds ``make_mesh(mesh)`` on the GP's device type.  None: the
+        GP's device alone.
     """
 
     def __init__(
@@ -223,6 +238,7 @@ class GP:
         fast_predict: bool = False,
         pallas_predict: bool = False,
         device=None,
+        mesh=None,
     ):
         self.D = D
         self.covariance = covariance
@@ -235,6 +251,9 @@ class GP:
         if self.dtype not in _TORCH_DTYPES:
             raise ValueError(f"dtype must be float64 or float32, got {dtype}")
         self.device = resolve_device(device)
+        if isinstance(mesh, int):
+            mesh = make_mesh(mesh, device=self.device.type)
+        self.mesh = mesh
         self.s2 = None
         self.X = None
         self.y = None
@@ -1351,8 +1370,9 @@ class GP:
     def _group_predict(self, x_star):
         """Per-sample predictive mean and variance, (M, s_N) each, with
         one device-to-host copy at the end; matrix-free posteriors go
-        through :meth:`_cg_serve`.  Under output warping these are the
-        moments in the warped space."""
+        through :meth:`_cg_serve`, and with a mesh each sample's test
+        points are sharded over it (``serving.predict_sharded``).  Under
+        output warping these are the moments in the warped space."""
         if self._matrix_free():
             return self._cg_serve(x_star)
         spec = self._spec()
@@ -1366,12 +1386,15 @@ class GP:
                     out[0, s], out[1, s] = prior_branch(spec, p.hyp, xs)
             else:
                 X, _, _ = self._data()
-                chunk = self._predict_chunk(X.shape[0], M)
+                # A shard's points, with a mesh.
+                M_dev = M if self.mesh is None else -(-M // self.mesh.size)
+                chunk = self._predict_chunk(X.shape[0], M_dev)
                 for s, p in enumerate(self.posteriors):
-                    out[0, s], out[1, s] = predict_chunked(
-                        spec, bool(p.L_chol), p.hyp, p.alpha, p.L, p.sW,
-                        X, None, xs, chunk,
-                    )
+                    args = (spec, bool(p.L_chol), p.hyp, p.alpha, p.L, p.sW,
+                            X, None, xs, chunk)
+                    out[0, s], out[1, s] = (
+                        predict_chunked(*args) if self.mesh is None
+                        else predict_sharded(*args, self.mesh))
         packed = out.cpu().numpy().astype(np.float64)
         return packed[0].T.copy(), packed[1].T.copy()
 
@@ -1566,7 +1589,8 @@ class GP:
         1818-1981), with zero, constant or negative-quadratic means.
         ``mu`` is (M, D) or one value, ``sigma`` (M, D), (1, D) or one
         value.  Each sample integrates on the GP's device in its own
-        parametrization (``serving.quad_moments``).
+        parametrization (``serving.quad_moments``), with a mesh its
+        measures sharded over it (``serving.quad_sharded``).
 
         Returns F (M, 1), or (M, s_N) with ``separate_samples``, and with
         ``compute_var`` also its variance, the mixture's across samples
@@ -1614,10 +1638,10 @@ class GP:
                           dtype=self._tdtype, device=self.device)
         with torch.no_grad():
             for s, p in enumerate(self.posteriors):
-                F_s, J_s = quad_moments(
-                    spec, bool(p.L_chol), p.hyp, p.alpha, p.L, p.sn2_mult, X,
-                    mu_t, sigma_t, chunk, compute_var,
-                )
+                args = (spec, bool(p.L_chol), p.hyp, p.alpha, p.L, p.sn2_mult,
+                        X, mu_t, sigma_t, chunk, compute_var)
+                F_s, J_s = (quad_moments(*args) if self.mesh is None
+                            else quad_sharded(*args, self.mesh))
                 out[0, s] = F_s
                 if compute_var:
                     out[1, s] = J_s

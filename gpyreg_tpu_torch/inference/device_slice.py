@@ -60,10 +60,15 @@ Left out, with the JAX package's lines:
   the device time of one dispatch under the TPU runtime's watchdog.
   ``sample`` and ``sample_chains`` accept ``seg_sweeps`` and
   ``seg_moves`` and ignore them: the host-driven chain has no dispatch to
-  bound, and its law and stream are those of the monolithic chain;
-- until the multi-device tier: the ``mesh`` argument of
-  ``sample_chains`` (:1442, :1457-1461, :1474-1484, :1515-1526); the
-  chains run one after the other.
+  bound, and its law and stream are those of the monolithic chain.
+
+``sample_chains``' ``mesh`` (:1442, :1457-1461, :1474-1484, :1515-1526;
+``parallel/mesh.py``) pads the chain count to the mesh and splits the
+stream into the padded count, as JAX splits its key, so a padded run
+draws JAX's padded chains; chain b runs on shard b // ceil(B / shards)
+with the density's arguments on that shard's device, and the padded
+chains, which JAX drops, are not run.  The chains still run one after
+the other.
 """
 
 import logging
@@ -691,6 +696,7 @@ def sample_chains(
     adaptive: bool = True,
     max_shrink: int = 256,
     f_args=(),
+    mesh=None,
     seg_sweeps: int = None,
     move: str = "cw",
     width_base: bool = True,
@@ -698,7 +704,10 @@ def sample_chains(
     """Run B independent chains, one per row of ``x0s`` (B, D), one after
     the other, each on its own stream of ``key.split(B)`` (``key`` a
     stream or an integer seed), as the JAX package's vmapped chains each
-    take one key of ``split(key, B)``.
+    take one key of ``split(key, B)``.  With ``mesh`` (a
+    ``parallel.mesh.Mesh``) B is padded to the mesh, the stream split
+    into the padded count, and each chain runs with ``f_args`` on its
+    shard's device (module docstring).
 
     Returns ``(samples (B, n, D), f_vals (B, n), n_evals (B,), n_sweeps
     (B,))``: the JAX package returns the first two and passes the
@@ -722,11 +731,17 @@ def sample_chains(
     f_vals = np.empty((B, n_samples))
     n_evals = np.empty((B,), dtype=np.int64)
     n_sweeps = np.empty((B,), dtype=np.int64)
-    for b, stream in enumerate(_as_stream(key).split(B)):
-        state = SliceState(x=x0s[b], log_Px=0.0, widths=w, stream=stream)
+    # Chain b runs on shard b // per with that shard's arguments.
+    if mesh is None:
+        per, shard_args = max(B, 1), [f_args]
+    else:
+        per, shard_args = -(-B // mesh.size), mesh.replicate(tuple(f_args))
+    streams = _as_stream(key).split(per * len(shard_args) if B else 0)
+    for b in range(B):
+        state = SliceState(x=x0s[b], log_Px=0.0, widths=w, stream=streams[b])
         _, _, samples[b], f_vals[b], _, n_evals[b], n_sweeps[b] = _run_chain(
             log_f, state, LB, UB, LB_out, UB_out, base_widths,
             int(n_samples), int(thin), int(burn), bool(adaptive),
-            int(max_shrink), f_args, False, None, str(move),
+            int(max_shrink), shard_args[b // per], False, None, str(move),
         )
     return samples, f_vals, n_evals, n_sweeps

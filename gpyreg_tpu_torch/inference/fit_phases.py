@@ -15,12 +15,13 @@ gaussian_process.py:1087-1196), with its three backends:
 Left out, with the JAX package's lines: ``_design_chunk`` (:29-42), which
 bounds the ``(chunk, N, N)`` workspace of a vmapped ranking program; the
 design rows run one at a time here, so one row's (N, N) buffers are live
-at once and there is nothing to bound; the segment plan (:198-204) and the
-``mesh`` argument (:223), which ``map_optimize`` leaves out; and the
+at once and there is nothing to bound; the segment plan (:198-204), which
+``map_optimize`` leaves out; and the
 ``multistart_map`` branch after the split design (:264-278), which no
 combination of options reaches (the device backend with ``opts_N > 0`` is
 the fused path).  The sorted design and its values come back as host
-arrays.
+arrays.  ``gp.mesh`` goes to ``design_optimize`` (:223), which shards the
+design rows and the restart lanes over it.
 """
 
 import math
@@ -185,6 +186,7 @@ def design_and_map(
             design_f_args=design_f_args,
             device=gp.device,
             timings=gp.fit_timings,
+            mesh=gp.mesh,
         )
         gp.fit_timings["design_s"] += gp.fit_timings.pop("rank_s")
         opts_N = k

@@ -22,7 +22,10 @@ seeds its chain's stream with it (``device_slice.make_stream``), so
 numpy's state after a fit is the same in both packages.  The slice and
 ensemble chains' density is ``log_post_chain_raw``, one call a proposal
 on the GP's device; MALA and HMC call ``log_post_raw``'s value and
-gradient, one call a proposal or leapfrog point.
+gradient, one call a proposal or leapfrog point.  The chain-parallel
+branch and the slicelite refit hand ``gp.mesh`` to
+``device_slice.sample_chains`` (:273, :604), which places each chain on
+its shard's device.
 
 Left out, with the JAX package's lines:
 
@@ -187,6 +190,7 @@ def slicelite_warm_refit(gp, warm, s_N, LB, UB, PLB, PUB, widths, options,
         burn=thin_eff - 1,
         adaptive=False,
         f_args=obj_args,
+        mesh=gp.mesh,
     )
     samples, f_vals = samples[:, 0, :], f_vals[:, 0]
     # The refreshed chains target the log posterior; split the prior out
@@ -415,6 +419,7 @@ def _run_chain_parallel(gp, options, s_N, eff_s_N, burn_in, widths,
         thin=chain_thin,
         burn=burn_in,
         f_args=obj_args,
+        mesh=gp.mesh,
         move=slice_move,
         width_base=options.get("sample_width_base", True),
     )

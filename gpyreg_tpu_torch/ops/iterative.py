@@ -67,13 +67,16 @@ def make_probes(seed, shape, dtype, device):
     return (2 * bits - 1).to(dtype)
 
 
-def _panel_matvec(spec: ModelSpec, hyp_cov, X, V, sn2_vec, row_chunk):
+def _panel_matvec(spec: ModelSpec, hyp_cov, X, V, sn2_vec, row_chunk, Z=None):
     """(K + diag(sn2)) @ V without materializing K; ``sn2_vec`` None
-    leaves out the diagonal term.  X (N, D), V (N, B).  Forward only."""
+    leaves out the diagonal term.  X (N, D), V (N, B).  Forward only.
+    With ``Z`` (M, D) the panels are K(X, Z), V is (M, B) and the result
+    (N, B): a shard's rows of the product (``sn2_vec`` None)."""
     N = X.shape[0]
-    out = torch.empty_like(V)
+    Z = X if Z is None else Z
+    out = torch.empty((N, V.shape[1]), dtype=V.dtype, device=V.device)
     for start in range(0, N, row_chunk):
-        Kp = cov_matrix(spec, hyp_cov, X[start : start + row_chunk], Z=X)
+        Kp = cov_matrix(spec, hyp_cov, X[start : start + row_chunk], Z=Z)
         out[start : start + row_chunk] = Kp @ V
         del Kp
     if sn2_vec is None:

@@ -30,9 +30,13 @@ Left out, for good: the MXU pre-inverted serving branch ``chol_mxu``
 dispatches and tunnel pulls: ``_packed_multi`` (:284-295), the
 where-selected ``mixed_*`` programs of prediction and quadrature
 (:297-308, :498-504) and the ``*_packed`` keys (:310-333, :487-533); a
-sample here takes its own parametrization's branch.  Left out until the
-mesh tier: ``_predict_sharded_fn`` (:81-130) and ``_quad_sharded_fn``
-(:535-568).
+sample here takes its own parametrization's branch.
+
+The mesh-sharded serving of ``_predict_sharded_fn`` (:81-130) and
+``_quad_sharded_fn`` (:535-568) is :func:`predict_sharded` and
+:func:`quad_sharded`: plain functions over the shards of a
+``parallel.mesh.Mesh``, the test points or measures sharded and one
+sample's factors replicated.
 """
 
 import numpy as np
@@ -41,6 +45,7 @@ import torch
 from .core.model import ModelSpec, cov_matrix, mean_value
 from .ops.kernels import kernel_matrix_plain
 from .ops.linalg import robust_cholesky
+from .parallel.mesh import all_gather
 
 
 def _post_small(alphas, mults, sn2mins):
@@ -300,3 +305,48 @@ def predict_chunked(spec: ModelSpec, flag, hyp, alpha, L, sW, X, n_real, xs,
             spec, hyp, alpha, L, sW, X, n_real, xs[start:stop]
         )
     return mu, s2
+
+
+def predict_sharded(spec: ModelSpec, flag, hyp, alpha, L, sW, X, n_real, xs,
+                    chunk, mesh):
+    """:func:`predict_chunked` with the test points sharded over ``mesh``
+    (``gpyreg_tpu/serving.py:81-130``): shard i serves its slab of
+    ``xs`` on its device against a replica of the sample's factors,
+    ``chunk`` points at a time, every shard's work issued before the
+    moments are gathered on ``xs``' device.  The copies onto the shards
+    (the hyperparameters as a tensor, the factors, the points) are all
+    issued first: a copy between devices runs on its source's stream, so
+    one issued after a shard's work would wait for it.  Returns mu, s2
+    (M,)."""
+    hyp = torch.as_tensor(hyp).to(device=X.device, dtype=X.dtype)
+    shards = [(args, xs[a:b].to(dev)) for dev, (a, b), args in zip(
+        mesh.devices, mesh.slices(xs.shape[0]),
+        mesh.replicate((hyp, alpha, L, sW, X))) if a < b]
+    parts = [predict_chunked(spec, flag, *args, n_real, xs_d, chunk)
+             for args, xs_d in shards]
+    return (all_gather([p[0] for p in parts], xs.device),
+            all_gather([p[1] for p in parts], xs.device))
+
+
+def quad_sharded(spec: ModelSpec, flag, hyp, alpha, L, mult, X, mu, sigma,
+                 chunk, compute_var, mesh):
+    """:func:`quad_moments` with the measures sharded over ``mesh``
+    (``gpyreg_tpu/serving.py:535-568``): shard i integrates its slab of
+    N(mu, sigma^2) on its device against a replica of the sample's
+    factors (``sigma`` with one row serves every measure), the copies
+    onto the shards issued first, as in :func:`predict_sharded`.  Returns
+    F, J (M,) on ``mu``'s device (J None without ``compute_var``)."""
+    hyp = torch.as_tensor(hyp).to(device=X.device, dtype=X.dtype)
+    shards = [
+        (args, mu[a:b].to(dev),
+         (sigma if sigma.shape[0] == 1 else sigma[a:b]).to(dev))
+        for dev, (a, b), args in zip(mesh.devices, mesh.slices(mu.shape[0]),
+                                     mesh.replicate((hyp, alpha, L, X)))
+        if a < b
+    ]
+    parts = [quad_moments(spec, flag, h, alpha_d, L_d, mult, X_d, mu_d,
+                          sig_d, chunk, compute_var)
+             for (h, alpha_d, L_d, X_d), mu_d, sig_d in shards]
+    F = all_gather([p[0] for p in parts], mu.device)
+    J = all_gather([p[1] for p in parts], mu.device) if compute_var else None
+    return F, J

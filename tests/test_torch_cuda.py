@@ -669,3 +669,140 @@ def test_outwarp_nlml_gradient_on_card_goes_through_the_gradient_tile(cuda):
     scale = torch.clamp(torch.abs(g64), min=1.0)
     assert torch.max(torch.abs(g32.cpu() - g64) / scale).item() < 1e-2
     assert torch.all(g64[:, -2:] != 0)
+
+
+def _mesh_data(N, D, M, seed):
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(N, D))
+    y = np.sum(np.sin(X), axis=1, keepdims=True) + 0.3 * rng.normal(size=(N, 1))
+    return X, y, rng.normal(size=(M, D))
+
+
+def _dist_exact_against_plain(devices):
+    """dist_exact_fit and dist_exact_predict in float32 on a mesh over
+    ``devices`` against the plain path (float64, a mesh of as many shards
+    on the CPU): one kernel-tile cross a shard for the build, one a shard
+    and chunk for predict, each slab on its shard's device with a zero
+    strict upper triangle."""
+    from gpyreg_tpu_torch.core.model import ModelSpec
+    from gpyreg_tpu_torch.parallel import dist_exact as DE
+    from gpyreg_tpu_torch.parallel import mesh as PM
+
+    N, D, M, b = 1000, 4, 100, 64
+    X, y, xs = _mesh_data(N, D, M, 14)
+    spec = ModelSpec(D=D, cov="se", mean="const", noise_constant=True,
+                     noise_user=0, noise_rectified=False)
+    hyp = np.concatenate([np.zeros(D), [0.0], [np.log(0.5)], [0.1]])
+    mesh = PM.make_mesh(devices=devices)
+    P = mesh.size
+    TK.reset_launches()
+    post = DE.dist_exact_fit(spec, mesh, hyp, X.astype(np.float32),
+                             y.astype(np.float32), b=b)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "cross": P}
+    rows = post.Np // P
+    for i, slab in enumerate(post.slabs):
+        assert slab.device == mesh.devices[i] and slab.shape == (rows, post.Np)
+        assert torch.all(torch.triu(slab, diagonal=i * rows + 1) == 0)
+    TK.reset_launches()
+    mu32, s232 = DE.dist_exact_predict(post, xs)
+    chunks = -(-M // min(1024, -(-M // 64) * 64))
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0),
+                           "cross": P * chunks}
+    plain = DE.dist_exact_fit(spec, PM.make_mesh(P, device="cpu"), hyp, X, y,
+                              b=b)
+    mu64, s264 = DE.dist_exact_predict(plain, xs)
+    assert abs(float(post.nlml) - float(plain.nlml)) < 1e-4 * abs(float(plain.nlml))
+    assert np.max(np.abs(mu32 - mu64)) < 1e-3
+    assert np.max(np.abs(s232 - s264)) < 1e-3
+
+
+def test_dist_exact_on_four_shards_of_one_card(cuda):
+    _dist_exact_against_plain([torch.device("cuda", 0)] * 4)
+
+
+def test_dist_exact_across_the_cards_of_the_host(cuda):
+    """The first launches of the kernel tile on a device other than
+    cuda:0, where the host has two cards or more (2 or 4 of them)."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two CUDA devices")
+    _dist_exact_against_plain([torch.device("cuda", i)
+                               for i in range(4 if count >= 4 else 2)])
+
+
+def _mesh_paths_against_single(cuda, devices):
+    """sharded_nlml_grad (7 lanes padded to the mesh: 7 self and 7
+    gradient tiles), sharded_cg_weights (one cross a panel a matvec) and
+    GP(mesh=...).predict (one cross a shard and sample) on a mesh over
+    ``devices`` (2 or 4 shards), against the single-device paths on
+    ``cuda``."""
+    import gpyreg_tpu_torch as gt
+    from gpyreg_tpu_torch.core.model import ModelSpec
+    from gpyreg_tpu_torch.core.nlml import get_fns
+    from gpyreg_tpu_torch.ops import iterative as IT
+    from gpyreg_tpu_torch.parallel import mesh as PM
+
+    mesh = PM.make_mesh(devices=devices)
+    P = mesh.size
+    N, D = 1024, 4
+    X, y, xs = _mesh_data(N, D, 96, 15)
+    spec = ModelSpec(D=D, cov="se", mean="const", noise_constant=True,
+                     noise_user=0, noise_rectified=False)
+    t32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=cuda)  # noqa: E731
+    hyps = 0.05 * np.random.default_rng(16).normal(size=(7, spec.hyp_N))
+    hyps[:, D + 1] += np.log(0.3)
+    TK.reset_launches()
+    v, g = PM.sharded_nlml_grad(spec, mesh, hyps, t32(X), t32(y))
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "self": 7, "vjp": 7}
+    v1, g1 = get_fns(spec, False, False)["nlz_grad"](hyps, t32(X), t32(y))
+    assert torch.max(torch.abs(v - v1)).item() <= 1e-6 * torch.max(torch.abs(v1)).item()
+    assert torch.max(torch.abs(g - g1)).item() <= 1e-6 * max(
+        1.0, torch.max(torch.abs(g1)).item())
+
+    TK.reset_launches()
+    alpha, res, iters = PM.sharded_cg_weights(spec, mesh, hyps[0], t32(X[:1000]),
+                                              t32(y[:1000]), tol=1e-5,
+                                              max_iter=300)
+    torch.cuda.synchronize()
+    # 1000 rows over P shards: one panel of 1000 / P rows a shard.
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0),
+                           "cross": P * iters}
+    with torch.no_grad():
+        a1 = IT.cg_posterior_weights(spec, hyps[0], t32(X[:1000]),
+                                     t32(y[:1000]), None, tol=1e-5,
+                                     max_iter=300)[0]
+    assert float(res.max()) <= 1e-5
+    assert torch.max(torch.abs(alpha - a1)).item() < 1e-3 * max(
+        1.0, torch.max(torch.abs(a1)).item())
+
+    def gp(m):
+        g_ = gt.GP(D, gt.covariance_functions.SquaredExponential(),
+                   gt.mean_functions.ConstantMean(),
+                   gt.noise_functions.GaussianNoise(constant_add=True),
+                   dtype=np.float32, mesh=m)
+        g_.update(X_new=X, y_new=y, hyp=hyps[:2])
+        return g_
+
+    g1_, gm = gp(None), gp(mesh)
+    TK.reset_launches()
+    mu_m, s2_m = gm.predict(xs, separate_samples=True)
+    assert TK.LAUNCHES == {**dict.fromkeys(TK.LAUNCHES, 0), "cross": 2 * P}
+    mu_1, s2_1 = g1_.predict(xs, separate_samples=True)
+    assert np.max(np.abs(mu_m - mu_1)) < 1e-5 * max(1.0, np.max(np.abs(mu_1)))
+    assert np.max(np.abs(s2_m - s2_1)) < 1e-5
+
+
+def test_mesh_paths_on_four_shards_of_one_card(cuda):
+    _mesh_paths_against_single(cuda, [torch.device("cuda", 0)] * 4)
+
+
+def test_mesh_paths_across_the_cards_of_the_host(cuda):
+    """The same over 2 or 4 cards (a power of two: each shard's shapes
+    stay on the TMA paths), where the host has two or more."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two CUDA devices")
+    _mesh_paths_against_single(cuda, [torch.device("cuda", i)
+                                      for i in range(4 if count >= 4 else 2)])

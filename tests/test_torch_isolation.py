@@ -59,7 +59,8 @@ def test_import_leaves_jax_out():
                  "inference.device_slice", "inference.sampling", "slice_sample",
                  "inference.mala", "inference.hmc", "inference.ensemble_slice",
                  "core.rank1", "formatting", "gaussian_process",
-                 "outwarp_functions", "ops.iterative", "inference.cg_fit"):
+                 "outwarp_functions", "ops.iterative", "inference.cg_fit",
+                 "parallel.mesh", "parallel.dist_exact"):
         assert "gpyreg_tpu_torch." + name in modules
 
 
