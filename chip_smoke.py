@@ -1023,6 +1023,17 @@ def _synced(fn):
     return out, time.perf_counter() - t0, dict(TK.LAUNCHES)
 
 
+def _route(fn):
+    """The routes of ``ops.linalg.robust_cholesky`` that an untimed call
+    of ``fn`` took, read from its spans under the host profiler."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    names = {e.name for e in prof.events()}
+    return "+".join(k for k in ("cholesky", "eigh")
+                    if f"gpyreg.robust_cholesky.{k}" in names)
+
+
 def _expect(what, launches, **want):
     from gpyreg_tpu_torch.ops import tile_kernels as TK
 
@@ -1040,7 +1051,6 @@ def phase_serving_rest(gp, X, y, xs, hyp):
 
     from gpyreg_tpu_torch.convert import gp_from_arrays
     from gpyreg_tpu_torch.inference import map_optimize as MO
-    from gpyreg_tpu_torch.ops import linalg as TL
 
     t_phase = time.perf_counter()
     out = {}
@@ -1178,26 +1188,24 @@ def phase_serving_rest(gp, X, y, xs, hyp):
     out["quad_ms"] = q_s * 1e3
 
     # (d) random_function: one draw at 1024 points, then 256 at 64.
-    routes = dict(TL.ROBUST_ROUTES)
     f1, rf_s, out["random_function"] = _synced(lambda: gp.random_function(xp))
-    route = [k for k in routes if TL.ROBUST_ROUTES[k] > routes[k]]
+    route = _route(lambda: gp.random_function(xp))
     _expect("random_function", out["random_function"], self=1, cross=1)
     if not (f1.shape == (M_PF, 1) and np.all(np.isfinite(f1))):
         raise AssertionError("random_function: not finite")
     xr = xs[:M_RF]
-    routes = dict(TL.ROBUST_ROUTES)
     np.random.seed(SEED)
     draws, rfn_s, out["random_draws"] = _synced(lambda: np.stack(
         [gp.random_function(xr)[:, 0] for _ in range(N_RF)]))
     _expect("random_function draws", out["random_draws"], self=N_RF,
             cross=N_RF)
-    used = {k: TL.ROBUST_ROUTES[k] - routes[k] for k in routes}
+    used = _route(lambda: gp.random_function(xr))
     mu_mix, s2_mix = gp.predict(xr)
     z = np.abs(draws.mean(axis=0) - mu_mix[:, 0]) / np.sqrt(s2_mix[:, 0] / N_RF)
     print(f"serving_rest random_function: one draw at {M_PF} points "
-          f"{rf_s * 1e3:.3f} ms ({route[0]} route); {N_RF} draws at {M_RF} "
-          f"points {rfn_s:.3f} s ({rfn_s / N_RF * 1e3:.3f} ms a draw, routes "
-          f"{used}); their mean vs predict's mixture mean: max |d|/se = "
+          f"{rf_s * 1e3:.3f} ms ({route} route); {N_RF} draws at {M_RF} "
+          f"points {rfn_s:.3f} s ({rfn_s / N_RF * 1e3:.3f} ms a draw, "
+          f"{used} route); their mean vs predict's mixture mean: max |d|/se = "
           f"{float(np.max(z)):.3f} (tol 5)")
     if not (np.all(np.isfinite(draws)) and np.all(z <= 5.0)):
         raise AssertionError("random_function draws miss the mixture mean")

@@ -38,6 +38,7 @@ import torch
 from .._config import CHOL_MAX_TRIES
 from ..ops.linalg import chol_solve, jittered_cholesky, quad_logdet
 from ..outwarp_functions import warp_value_and_dt
+from ..tracing import span, to_device
 from .model import ModelSpec, cov_matrix, mean_value, noise_variance
 from .priors import log_prior
 
@@ -69,32 +70,34 @@ def assemble(spec: ModelSpec, hyp, X, y, s2, n_real=None):
     mask: at extreme warp hyperparameters a padded row's warped value or
     log-slope can be infinite, and inf * 0 is NaN.
     """
-    N = X.shape[0]
-    hyp = torch.as_tensor(hyp).to(dtype=X.dtype, device=X.device)
-    hyp_cov, hyp_noise, hyp_mean = spec.split_hyp(hyp)
-    mask = _mask(N, n_real, X.device)
+    with span("gpyreg.assemble"):
+        N = X.shape[0]
+        hyp = torch.as_tensor(hyp).to(dtype=X.dtype, device=X.device)
+        hyp_cov, hyp_noise, hyp_mean = spec.split_hyp(hyp)
+        mask = _mask(N, n_real, X.device)
 
-    log_jacobian = torch.zeros((), dtype=X.dtype, device=X.device)
-    y_eff, s2_eff = y, s2
-    if spec.outwarp is not None:
-        y_eff, dwarp = warp_value_and_dt(spec.outwarp, spec.outwarp_hyp(hyp), y)
-        if s2 is not None:
-            s2_eff = s2 * dwarp**2
-        log_jac_terms = torch.log(torch.abs(dwarp))
+        log_jacobian = torch.zeros((), dtype=X.dtype, device=X.device)
+        y_eff, s2_eff = y, s2
+        if spec.outwarp is not None:
+            y_eff, dwarp = warp_value_and_dt(spec.outwarp,
+                                             spec.outwarp_hyp(hyp), y)
+            if s2 is not None:
+                s2_eff = s2 * dwarp**2
+            log_jac_terms = torch.log(torch.abs(dwarp))
+            if mask is not None:
+                log_jac_terms = torch.where(mask[:, None], log_jac_terms,
+                                            torch.zeros_like(log_jac_terms))
+            log_jacobian = torch.sum(log_jac_terms)
+
+        sn2 = noise_variance(spec, hyp_noise, y, s2_eff, X.dtype)
+        m = mean_value(spec, hyp_mean, X)[:, None]
+        K = _cov_masked(spec, hyp_cov, X, n_real)
+        sn2_vec = torch.broadcast_to(torch.reshape(sn2, (-1,)), (N,))
+        r = y_eff - m
         if mask is not None:
-            log_jac_terms = torch.where(mask[:, None], log_jac_terms,
-                                        torch.zeros_like(log_jac_terms))
-        log_jacobian = torch.sum(log_jac_terms)
-
-    sn2 = noise_variance(spec, hyp_noise, y, s2_eff, X.dtype)
-    m = mean_value(spec, hyp_mean, X)[:, None]
-    K = _cov_masked(spec, hyp_cov, X, n_real)
-    sn2_vec = torch.broadcast_to(torch.reshape(sn2, (-1,)), (N,))
-    r = y_eff - m
-    if mask is not None:
-        sn2_vec = torch.where(mask, sn2_vec, torch.ones_like(sn2_vec))
-        r = torch.where(mask[:, None], r, torch.zeros_like(r))
-    return K, sn2_vec, r, m, log_jacobian
+            sn2_vec = torch.where(mask, sn2_vec, torch.ones_like(sn2_vec))
+            r = torch.where(mask[:, None], r, torch.zeros_like(r))
+        return K, sn2_vec, r, m, log_jacobian
 
 
 def _assemble_batch(spec, hyps, X, y, s2, n_real):
@@ -115,15 +118,22 @@ def _assemble_batch(spec, hyps, X, y, s2, n_real):
 
 
 def _batched(hyp, X):
-    hyp = torch.as_tensor(hyp).to(dtype=X.dtype, device=X.device)
+    hyp = to_device("stack_hyp", hyp, X.dtype, X.device)
     return hyp[None] if hyp.ndim == 1 else hyp, hyp.ndim == 1
 
 
 def _each_lane(fn, hyp, X):
-    """``fn`` of one vector, over one vector or a stack (S,)."""
+    """``fn`` of one vector, over one vector or a stack (S,).  Each vector
+    of a stack is the span ``gpyreg.nlml.lane``; one vector alone is its
+    caller's lane (:func:`value_and_grad` opens it)."""
     hyps, single = _batched(hyp, X)
-    out = torch.stack([fn(h) for h in hyps])
-    return out[0] if single else out
+    if single:
+        return fn(hyps[0])
+    outs = []
+    for h in hyps:
+        with span("gpyreg.nlml.lane"):
+            outs.append(fn(h))
+    return torch.stack(outs)
 
 
 def gp_parts(spec: ModelSpec, hyp, X, y, s2, n_real=None):
@@ -181,16 +191,20 @@ def nlz_chain(spec: ModelSpec, hyp, X, y, s2, n_real=None):
         K.diagonal().add_(sn2_vec)
         L, info = torch.linalg.cholesky_ex(K)
         del K
-        tries = 1
-        while tries < CHOL_MAX_TRIES and bool(info != 0):
-            mult = mult * 10.0
-            del L
-            K = _cov_masked(spec, hyp_cov, X, n_real)
-            K.diagonal().add_(mult * sn2_vec)
-            L, info = torch.linalg.cholesky_ex(K)
-            del K
-            tries += 1
-        if bool(info != 0):
+        for _ in range(1, CHOL_MAX_TRIES):
+            with span("gpyreg.sync.chain_retry"):
+                if not bool(info != 0):
+                    break
+            with span("gpyreg.chol.retry"):
+                mult = mult * 10.0
+                del L
+                K = _cov_masked(spec, hyp_cov, X, n_real)
+                K.diagonal().add_(mult * sn2_vec)
+                L, info = torch.linalg.cholesky_ex(K)
+                del K
+        with span("gpyreg.sync.chain_failed"):
+            failed = bool(info != 0)
+        if failed:
             L.fill_(float("nan"))
         alpha = chol_solve(L, r)
         quad = torch.sum(r * alpha)
@@ -230,14 +244,16 @@ def value_and_grad(fn, hyp, X):
     backward runs before the next lane's forward, so one lane's (N, N)
     buffers are live at a time.  ``h`` is a float64 tensor on X's
     device; the gradient is float64."""
-    hyp = torch.as_tensor(hyp, dtype=torch.float64).to(X.device)
+    hyp = to_device("grad_hyp", hyp, torch.float64, X.device)
     single = hyp.ndim == 1
     vals, grads = [], []
     for h in hyp[None] if single else hyp:
-        h = h.detach().clone().requires_grad_(True)
-        with torch.enable_grad():
-            v = fn(h)
-            (g,) = torch.autograd.grad(v, h)
+        with span("gpyreg.nlml.lane"), torch.enable_grad():
+            h = h.detach().clone().requires_grad_(True)
+            with span("gpyreg.nlml.forward"):
+                v = fn(h)
+            with span("gpyreg.nlml.backward"):
+                (g,) = torch.autograd.grad(v, h)
         vals.append(v.detach())
         grads.append(g)
     if single:

@@ -60,13 +60,12 @@ row and column instead of writing into padding, and needs no
 bucket-full rule, :1104-1107), the stacked-factor cache
 ``_stack_cache`` and the live-GP HBM pre-flight with ``fit``'s warning
 and ``_device_factor_bytes`` (:169-237, :350-375, :518-551,
-:1521-1542), the compile log and ``fit_timings``' ``n_compiles`` /
-``compile_s`` (:1392-1400), and ``fit``'s ``trace_dir`` option
-(:1505-1509, a hook into the JAX profiler;
-``tools/profile_torch_slice.py`` profiles a fit).
+:1521-1542), and the compile log and ``fit_timings``' ``n_compiles`` /
+``compile_s`` (:1392-1400).  ``fit``'s ``trace_dir`` (:1505-1509, a hook
+into the JAX profiler) runs the fit under ``torch.profiler`` instead, and
+the layers record their spans there (``tracing.py``).
 """
 
-import time
 import warnings
 from textwrap import indent
 
@@ -89,6 +88,7 @@ from .inference import map_optimize as _map_optimize
 from .inference import sampling as _sampling
 from .ops.linalg import neg_inverse_from_chol
 from .parallel.mesh import make_mesh
+from .tracing import Timings, phase, profile, span
 from .serving import (
     _post_small,
     _scaled_upper_batch,
@@ -301,12 +301,15 @@ class GP:
         )
 
     def _data(self):
-        """(X, y, s2) as tensors on the device, built once per data set."""
+        """(X, y, s2) as tensors on the device, built once per data set;
+        each array's copy is the sync span ``gpyreg.sync.data``."""
         if self._ctx is None:
-            self._ctx = tuple(
-                None if a is None else self._tensor(a)
-                for a in (self.X, self.y, self.s2)
-            )
+            ctx = [None] * 3
+            for i, a in enumerate((self.X, self.y, self.s2)):
+                if a is not None:
+                    with span("gpyreg.sync.data"):
+                        ctx[i] = self._tensor(a)
+            self._ctx = tuple(ctx)
         return self._ctx
 
     def _device(self):
@@ -349,9 +352,12 @@ class GP:
         h = np.asarray(hyp, dtype=np.float64)
         if grad:
             v, g = fns["obj_grad"](h, *args)
-            v, g = float(v), g.cpu().numpy()
+            with span("gpyreg.sync.objective"):
+                v, g = float(v), g.cpu().numpy()
             return (-v, -g) if swap_sign else (v, g)
-        v = float(fns["obj"](h, *args))
+        v = fns["obj"](h, *args)
+        with span("gpyreg.sync.objective"):
+            v = float(v)
         return -v if swap_sign else v
 
     def _objective_batch(self, hyps):
@@ -362,7 +368,8 @@ class GP:
         nothing to bound."""
         fns, args = self._obj_args()
         v = fns["obj_batch"](np.asarray(hyps, dtype=np.float64), *args)
-        return v.cpu().numpy().astype(np.float64)
+        with span("gpyreg.sync.objective_batch"):
+            return v.cpu().numpy().astype(np.float64)
 
     def _posterior_batch_size(self, N, remaining):
         """Samples factorized together: the working set of one sample is
@@ -426,15 +433,15 @@ class GP:
         with torch.no_grad():
             while start < S:
                 stop = start + self._posterior_batch_size(N, S - start)
-                alphas, Ls, mults, sn2mins = posterior_factors(
-                    spec, hyp_arr[start:stop], X, y, s2
-                )
-                posts.extend(
-                    self._finalize_posteriors(
-                        hyp_arr[start:stop], alphas, Ls, mults, sn2mins
+                with span("gpyreg.posterior.batch"):
+                    alphas, Ls, mults, sn2mins = posterior_factors(
+                        spec, hyp_arr[start:stop], X, y, s2
                     )
-                )
-                del alphas, Ls
+                    with span("gpyreg.posterior.finalize"):
+                        posts.extend(self._finalize_posteriors(
+                            hyp_arr[start:stop], alphas, Ls, mults, sn2mins
+                        ))
+                    del alphas, Ls
                 start = stop
         return posts
 
@@ -797,7 +804,10 @@ class GP:
             and self.posteriors is not None
             and self._rank_one_ready(N_old)
         )
-        unstable = self._rank_one_update(X_new, y_new) if rank_one else []
+        unstable = []
+        if rank_one:
+            with span("gpyreg.update.rank1"):
+                unstable = self._rank_one_update(X_new, y_new)
 
         for name, new in (("X", X_new), ("y", y_new), ("s2", s2_new)):
             if new is not None:
@@ -811,9 +821,10 @@ class GP:
 
         if rank_one:
             if unstable:
-                fixed = self._compute_posteriors(
-                    np.stack([self.posteriors[s].hyp for s in unstable])
-                )
+                with span("gpyreg.update.full"):
+                    fixed = self._compute_posteriors(
+                        np.stack([self.posteriors[s].hyp for s in unstable])
+                    )
                 for p, s in zip(fixed, unstable):
                     self.posteriors[s] = p
             return
@@ -829,7 +840,8 @@ class GP:
                 posts = [Posterior(h, None, None, None, 1, None,
                                    matrix_free=True) for h in hyp]
             else:
-                posts = self._compute_posteriors(hyp)
+                with span("gpyreg.update.full"):
+                    posts = self._compute_posteriors(hyp)
             self.posteriors = np.array(posts, dtype=object)
         else:
             self.posteriors = np.array(
@@ -889,11 +901,14 @@ class GP:
                         float(np.ravel(sn2)[0]) * p.sn2_mult
                     )
                     fn = _rank1.chol_one if p.L_chol else _rank1.inv_one
-                    L, alpha, sW, ok = fn(
-                        spec, p.hyp, p.alpha, p.L, p.sW, X, x_new, y_t,
-                        sn2_eff,
-                    )
-                    if not bool(ok):
+                    with span("gpyreg.rank1.sample"):
+                        L, alpha, sW, ok = fn(
+                            spec, p.hyp, p.alpha, p.L, p.sW, X, x_new, y_t,
+                            sn2_eff,
+                        )
+                        with span("gpyreg.sync.rank1_ok"):
+                            ok = bool(ok)
+                    if not ok:
                         unstable.append(i)
                         warnings.warn(
                             "Rank-one posterior update unstable for "
@@ -965,6 +980,83 @@ class GP:
         LB = np.array(LB, copy=True)
         LB[i_sn] = min(floor, UB[i_sn])
         return LB
+
+    def _fit_setup(self, X, y, s2, hyp0, options, outwarp_fun, df_base,
+                   lower_bounds, upper_bounds):
+        """The set-up of :meth:`fit` before its design: the data, the
+        output warp, the bounds and the starting hyperparameters.  Returns
+        (LB, UB, PLB, PUB, hyp0)."""
+        X, y, s2 = self._convert_shapes(X, y, s2)
+        if X is not None:
+            self.X = X
+        if y is not None:
+            self.y = y
+        if s2 is not None:
+            self.s2 = s2
+        self._invalidate()
+
+        if outwarp_fun is not None and outwarp_fun is not self.outwarp:
+            self.outwarp = outwarp_fun
+            self.posteriors = None
+            # set_bounds recomputes no normalization until set_priors has
+            # sized the prior table to the new layout.
+            self.no_prior = None
+            self.set_bounds()
+            self.set_priors()
+
+        cov_N, noise_N, _ = self._hyp_counts()
+
+        cov_info = self.covariance.get_bounds_info(self.X, self.y)
+        mean_info = self.mean.get_bounds_info(self.X, self.y)
+        noise_info = self.noise.get_bounds_info(self.X, self.y)
+
+        self.hyper_priors["df"][np.isnan(self.hyper_priors["df"])] = df_base
+
+        use_current_bounds = (
+            isinstance(lower_bounds, str)
+            and lower_bounds == "current"
+            and isinstance(upper_bounds, str)
+            and upper_bounds == "current"
+        )
+        if use_current_bounds and (
+            np.any(np.isnan(self.lower_bounds))
+            or np.any(np.isnan(self.upper_bounds))
+        ):
+            self.set_bounds(
+                self.get_recommended_bounds(
+                    self.lower_bounds, self.upper_bounds
+                )
+            )
+        else:
+            self.set_bounds(
+                self.get_recommended_bounds(lower_bounds, upper_bounds)
+            )
+
+        LB = self.lower_bounds
+        UB = self.upper_bounds
+        LB = self._f32_noise_floor(LB, UB, cov_N, options)
+
+        plb_parts = [cov_info["PLB"], noise_info["PLB"], mean_info["PLB"]]
+        pub_parts = [cov_info["PUB"], noise_info["PUB"], mean_info["PUB"]]
+        if self.outwarp is not None:
+            ow_info = self.outwarp.get_bounds_info(self.X, self.y)
+            plb_parts.append(ow_info["PLB"])
+            pub_parts.append(ow_info["PUB"])
+        PLB = np.concatenate(plb_parts)
+        PUB = np.concatenate(pub_parts)
+        PLB = np.minimum(np.maximum(PLB, LB), UB)
+        PUB = np.maximum(np.minimum(PUB, UB), LB)
+
+        if hyp0 is None:
+            if self.posteriors is not None:
+                hyp0 = self.get_hyperparameters(as_array=True)
+            else:
+                hyp0 = np.reshape(
+                    np.minimum(np.maximum((PLB + PUB) / 2, LB), UB), (1, -1)
+                )
+        elif isinstance(hyp0, dict):
+            hyp0 = self.hyperparameters_from_dict(hyp0)
+        return LB, UB, PLB, PUB, hyp0
 
     def fit(
         self,
@@ -1054,9 +1146,19 @@ class GP:
           ``ValueError`` before any state changes: the JAX package's CG
           objective never warps ``y``.
 
-        ``trace_dir`` raises ``NotImplementedError``.  ``fit_timings``
-        holds ``design_s``, ``optimize_s``, ``sample_s`` when it samples
-        and ``posterior_s``; ``fit_report`` holds every restart's result
+        - ``trace_dir``: run the fit under ``torch.profiler`` (the host,
+          and the card's kernels on a CUDA GP) and write its trace into
+          this directory, as the JAX package writes its profile there;
+          the phases are the spans ``gpyreg.fit.design``, ``.optimize``,
+          ``.sample`` and ``.posterior``, the port's layers inside them.
+
+        ``fit_timings`` holds the host-clock seconds of the phases, each
+        starting where the last ended, so that they add up to the fit's
+        time, as in the JAX package: ``design_s``
+        (the set-up, building and ranking the design), ``optimize_s``
+        (the restarts; in a slicelite warm refit, the set-up and the ESS
+        check, with ``design_s`` 0), ``sample_s`` when it samples and
+        ``posterior_s``; ``fit_report`` holds every restart's result
         (``"restarts"``) and the best objective value of the design
         (``"design_best"``, None unless the fused path ranked one).
 
@@ -1071,6 +1173,10 @@ class GP:
         """
         if options is None:
             options = {}
+        if options.get("trace_dir", None):
+            rest = {k: v for k, v in options.items() if k != "trace_dir"}
+            with profile(options["trace_dir"], self.device):
+                return self.fit(X, y, s2, hyp0, rest)
         opts_N = options.get("opts_N", 3)
         init_N = options.get("init_N", 2**10)
         init_method = options.get("init_method", "sobol")
@@ -1085,12 +1191,6 @@ class GP:
         lower_bounds = options.get("lower_bounds", "current")
         upper_bounds = options.get("upper_bounds", "current")
 
-        if options.get("trace_dir", None):
-            raise NotImplementedError(
-                "fit(options={'trace_dir': ...}) is a hook into the JAX "
-                "profiler and is not ported; profile a fit with "
-                "tools/profile_torch_slice.py."
-            )
         method = options.get("method", "exact")
         if method == "auto":
             N_data = X.shape[0] if X is not None else (
@@ -1122,85 +1222,19 @@ class GP:
             ):
                 raise ValueError("Unknown sampler!")
 
-        self.fit_timings = {}
-        _t_start = time.perf_counter()
+        self.fit_timings = timings = Timings()
 
-        X, y, s2 = self._convert_shapes(X, y, s2)
-        if X is not None:
-            self.X = X
-        if y is not None:
-            self.y = y
-        if s2 is not None:
-            self.s2 = s2
-        self._invalidate()
-
-        if outwarp_fun is not None and outwarp_fun is not self.outwarp:
-            self.outwarp = outwarp_fun
-            self.posteriors = None
-            # set_bounds recomputes no normalization until set_priors has
-            # sized the prior table to the new layout.
-            self.no_prior = None
-            self.set_bounds()
-            self.set_priors()
-
-        cov_N, noise_N, _ = self._hyp_counts()
-
-        cov_info = self.covariance.get_bounds_info(self.X, self.y)
-        mean_info = self.mean.get_bounds_info(self.X, self.y)
-        noise_info = self.noise.get_bounds_info(self.X, self.y)
-
-        self.hyper_priors["df"][np.isnan(self.hyper_priors["df"])] = df_base
-
-        use_current_bounds = (
-            isinstance(lower_bounds, str)
-            and lower_bounds == "current"
-            and isinstance(upper_bounds, str)
-            and upper_bounds == "current"
-        )
-        if use_current_bounds and (
-            np.any(np.isnan(self.lower_bounds))
-            or np.any(np.isnan(self.upper_bounds))
-        ):
-            self.set_bounds(
-                self.get_recommended_bounds(
-                    self.lower_bounds, self.upper_bounds
-                )
-            )
-        else:
-            self.set_bounds(
-                self.get_recommended_bounds(lower_bounds, upper_bounds)
-            )
-
-        LB = self.lower_bounds
-        UB = self.upper_bounds
-        LB = self._f32_noise_floor(LB, UB, cov_N, options)
-
-        plb_parts = [cov_info["PLB"], noise_info["PLB"], mean_info["PLB"]]
-        pub_parts = [cov_info["PUB"], noise_info["PUB"], mean_info["PUB"]]
-        if self.outwarp is not None:
-            ow_info = self.outwarp.get_bounds_info(self.X, self.y)
-            plb_parts.append(ow_info["PLB"])
-            pub_parts.append(ow_info["PUB"])
-        PLB = np.concatenate(plb_parts)
-        PUB = np.concatenate(pub_parts)
-        PLB = np.minimum(np.maximum(PLB, LB), UB)
-        PUB = np.maximum(np.minimum(PUB, UB), LB)
-
-        if hyp0 is None:
-            if self.posteriors is not None:
-                hyp0 = self.get_hyperparameters(as_array=True)
-            else:
-                hyp0 = np.reshape(
-                    np.minimum(np.maximum((PLB + PUB) / 2, LB), UB), (1, -1)
-                )
-        elif isinstance(hyp0, dict):
-            hyp0 = self.hyperparameters_from_dict(hyp0)
+        with phase(timings, "design_s"):
+            LB, UB, PLB, PUB, hyp0 = self._fit_setup(
+                X, y, s2, hyp0, options, outwarp_fun, df_base, lower_bounds,
+                upper_bounds)
+            cov_N, noise_N, _ = self._hyp_counts()
 
         if method == "cg":
             from .inference import cg_fit as _cg_fit
 
             return _cg_fit.fit_cg_path(
-                self, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N, _t_start
+                self, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N
             )
         self._infer_method = "exact"
 
@@ -1208,13 +1242,19 @@ class GP:
         # When the previous hyperposterior samples still cover the new
         # posterior well, skip the design and MAP and refresh each
         # previous sample with a few no-adapt slice sweeps.
+        # The set-up and the check count as the refit's optimize_s, or
+        # toward design_s when the full fit follows.
         if sampler_name == "slicelite" and s_N > 0:
-            warm = _sampling.slicelite_ess(self, hyp0, options, thin)
-            if warm is not None:
+            with phase(timings, "optimize_s"):
+                warm = _sampling.slicelite_ess(self, hyp0, options, thin)
+            if warm is None:
+                timings["design_s"] += timings.pop("optimize_s")
+            else:
+                timings.update(design_s=0.0, optimize_s=timings["design_s"]
+                               + timings["optimize_s"])
                 self.fit_report = {"restarts": [], "design_best": None}
                 return _sampling.slicelite_warm_refit(
                     self, warm, s_N, LB, UB, PLB, PUB, widths, options,
-                    _t_start,
                 )
 
         tol = tol_opt_mcmc if sampling else tol_opt
@@ -1236,7 +1276,6 @@ class GP:
             tol,
             cov_N,
             noise_N,
-            _t_start,
         )
 
         self.fit_report = {
@@ -1255,11 +1294,8 @@ class GP:
 
         if not sampling:
             hyp_start = np.reshape(hyp_start, (1, -1))
-            self.update(hyp=hyp_start)
-            self.fit_timings["posterior_s"] = (
-                time.perf_counter() - _t_start
-                - sum(self.fit_timings.values())
-            )
+            with phase(timings, "posterior_s"):
+                self.update(hyp=hyp_start)
             return hyp_start, optimize_result, None
 
         ## Sampling of the hyperposterior (inference/sampling.py).
@@ -1267,33 +1303,29 @@ class GP:
             widths = widths_default
         else:
             widths = np.minimum(widths, widths_default)
-        sampling_result, thin = _sampling.run_sampling(
-            self,
-            sampler_name=sampler_name,
-            options=options,
-            s_N=s_N,
-            thin=thin,
-            burn_in=burn_in,
-            widths=widths,
-            hyp_start=hyp_start,
-            f_start=f_start,
-            # Candidate pool for the non-finite-start fallback: the fused
-            # path's sorted design with its values.
-            cand=X0 if X0 is not None else hyp,
-            cand_vals=y0 if X0 is not None else None,
-            LB=LB,
-            UB=UB,
-        )
+        with phase(timings, "sample_s"):
+            sampling_result, thin = _sampling.run_sampling(
+                self,
+                sampler_name=sampler_name,
+                options=options,
+                s_N=s_N,
+                thin=thin,
+                burn_in=burn_in,
+                widths=widths,
+                hyp_start=hyp_start,
+                f_start=f_start,
+                # Candidate pool for the non-finite-start fallback: the
+                # fused path's sorted design with its values.
+                cand=X0 if X0 is not None else hyp,
+                cand_vals=y0 if X0 is not None else None,
+                LB=LB,
+                UB=UB,
+            )
         hyp = sampling_result["samples"][thin - 1 :: thin, :]
-        self.fit_timings["sample_s"] = (
-            time.perf_counter() - _t_start - sum(self.fit_timings.values())
-        )
-        _sampling.store_warm_state(self, hyp, sampling_result, thin, widths)
-
-        self.update(hyp=hyp)
-        self.fit_timings["posterior_s"] = (
-            time.perf_counter() - _t_start - sum(self.fit_timings.values())
-        )
+        with phase(timings, "posterior_s"):
+            _sampling.store_warm_state(self, hyp, sampling_result, thin,
+                                       widths)
+            self.update(hyp=hyp)
         return hyp, optimize_result, sampling_result
 
     # ------------------------------------------------------------------
@@ -1309,8 +1341,11 @@ class GP:
         fns, args = self._obj_args()
         if compute_grad:
             v, g = fns["nlz_grad"](hyp, *args)
-            return -float(v), -g.cpu().numpy()
-        return -float(fns["nlz"](hyp, *args))
+            with span("gpyreg.sync.log_likelihood"):
+                return -float(v), -g.cpu().numpy()
+        v = fns["nlz"](hyp, *args)
+        with span("gpyreg.sync.log_likelihood"):
+            return -float(v)
 
     def log_posterior(self, hyp, compute_grad: bool = False):
         """(Positive) unnormalized log posterior, the log likelihood plus
@@ -1353,8 +1388,11 @@ class GP:
         h = torch.as_tensor(hyp, device=self.device)
         if compute_grad:
             v, g = value_and_grad(lambda t: log_prior(pack, t), h, h)
-            return float(v), g.cpu().numpy()
-        return float(log_prior(pack, h))
+            with span("gpyreg.sync.log_prior"):
+                return float(v), g.cpu().numpy()
+        v = log_prior(pack, h)
+        with span("gpyreg.sync.log_prior"):
+            return float(v)
 
     # ------------------------------------------------------------------
     # Prediction
@@ -1377,7 +1415,8 @@ class GP:
             return self._cg_serve(x_star)
         spec = self._spec()
         S = self.posteriors.size
-        xs = self._tensor(x_star)
+        with span("gpyreg.sync.points"):
+            xs = self._tensor(x_star)
         M = xs.shape[0]
         out = torch.empty((2, S, M), dtype=self._tdtype, device=self.device)
         with torch.no_grad():
@@ -1392,10 +1431,12 @@ class GP:
                 for s, p in enumerate(self.posteriors):
                     args = (spec, bool(p.L_chol), p.hyp, p.alpha, p.L, p.sW,
                             X, None, xs, chunk)
-                    out[0, s], out[1, s] = (
-                        predict_chunked(*args) if self.mesh is None
-                        else predict_sharded(*args, self.mesh))
-        packed = out.cpu().numpy().astype(np.float64)
+                    with span("gpyreg.predict.sample"):
+                        out[0, s], out[1, s] = (
+                            predict_chunked(*args) if self.mesh is None
+                            else predict_sharded(*args, self.mesh))
+        with span("gpyreg.sync.predict"):
+            packed = out.cpu().numpy().astype(np.float64)
         return packed[0].T.copy(), packed[1].T.copy()
 
     def predict(
@@ -1418,17 +1459,27 @@ class GP:
         oracle), and ``return_lpd`` is the density of the original
         observation by change of variables, the mixture's exact
         log-mean-density."""
-        x_star, y_star, s2_star = self._convert_shapes(
-            x_star, y_star, s2_star
-        )
+        with span("gpyreg.predict"):
+            x_star, y_star, s2_star = self._convert_shapes(
+                x_star, y_star, s2_star
+            )
+            if return_lpd and y_star is None:
+                raise ValueError(
+                    "Cannot calculate log predictive density without y_star."
+                )
+            mu, s2 = self._group_predict(x_star)
+            with span("gpyreg.predict.mixture"):
+                return self._predict_mixture(
+                    mu, s2, x_star, y_star, s2_star, add_noise,
+                    separate_samples, return_lpd)
+
+    def _predict_mixture(self, mu, s2, x_star, y_star, s2_star, add_noise,
+                         separate_samples, return_lpd):
+        """:meth:`predict` on the host after the pull: the per-sample
+        moments (M, s_N) clamped, noised, inverse-warped and, unless
+        ``separate_samples``, reduced to the mixture."""
         s_N = self.posteriors.size
         cov_N, noise_N, _ = self._hyp_counts()
-        if return_lpd and y_star is None:
-            raise ValueError(
-                "Cannot calculate log predictive density without y_star."
-            )
-
-        mu, s2 = self._group_predict(x_star)
         s2 = np.maximum(s2, 0)  # clamp numerical negatives
 
         if return_lpd or add_noise:

@@ -20,11 +20,11 @@ takes, as in JAX.
 Left out, being TPU-only: the dispatch segmentation, ``seg_moves`` of the
 device chain (:190-216), which bounds a dispatch under the TPU runtime's
 watchdog (the port's chain is driven from the host one density at a
-time); ``_jit_by_identity`` (:239); the compile log and ``trace_dir``
-(:302-317).
+time); ``_jit_by_identity`` (:239); the compile log (:302-317).
+``GP.fit``'s ``trace_dir`` profiles this path too, with its phases as
+``tracing.phase`` spans.
 """
 
-import time
 import warnings
 
 import numpy as np
@@ -33,6 +33,7 @@ import torch
 from ..f_min_fill import build_design
 from ..ops import iterative as _iterative
 from ..slice_sample import SliceSampler
+from ..tracing import phase
 from . import device_slice as _device_slice
 from .sampling import sample_log_priors
 
@@ -43,7 +44,7 @@ _CG_SAMPLE_SEG_MIN_N = 2048
 _CG_SAMPLE_HOST_MIN_N = 32768
 
 
-def fit_cg_path(gp, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N, _t_start):
+def fit_cg_path(gp, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N):
     """Matrix-free MAP fit, and the fixed-probe chain on explicit request,
     called from ``GP.fit`` after the data and bounds are set.  Returns
     (hyp, optimize result, sampling result or None).  Objective
@@ -73,42 +74,42 @@ def fit_cg_path(gp, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N, _t_start):
     )
     spec = gp._spec()
     hyp0_2d = np.atleast_2d(np.asarray(hyp0, dtype=np.float64))
-    X, y, s2 = gp._data()
-
-    # A small Sobol design ranked by a loose-tolerance CG objective: the
-    # mid-plausible start often sits on a plateau where L-BFGS-B stalls.
     init_N = int(options.get("cg_init_N", 16))
     key = int(options.get("cg_seed", 0))
     hyp0 = hyp0_2d[0]
-    if init_N > 1:
-        gp.hyper_priors["df"][
-            np.isnan(gp.hyper_priors["df"])
-        ] = options.get("df_base", 7)
-        design = build_design(
-            hyp0_2d, LB, UB, PLB, PUB, gp.hyper_priors, init_N,
-            options.get("init_method", "sobol"),
-        )
-        vals = np.array([
-            _iterative.cg_nlml(
-                spec, h, X, y, s2, key=key, tol=1e-3,
-                row_chunk=cg_opts["row_chunk"], max_iter=cg_opts["max_iter"],
-                n_probes=fit_opts["n_probes"],
-                n_lanczos=fit_opts["n_lanczos"],
+    timings = gp.fit_timings
+    with phase(timings, "design_s"):
+        X, y, s2 = gp._data()
+        # A small Sobol design ranked by a loose-tolerance CG objective:
+        # the mid-plausible start often sits on a plateau where L-BFGS-B
+        # stalls.
+        if init_N > 1:
+            gp.hyper_priors["df"][
+                np.isnan(gp.hyper_priors["df"])
+            ] = options.get("df_base", 7)
+            design = build_design(
+                hyp0_2d, LB, UB, PLB, PUB, gp.hyper_priors, init_N,
+                options.get("init_method", "sobol"),
             )
-            for h in design
-        ])
-        finite = np.isfinite(vals)
-        if np.any(finite):
-            hyp0 = design[np.argmin(np.where(finite, vals, np.inf))]
-    gp.fit_timings["design_s"] = time.perf_counter() - _t_start
+            vals = np.array([
+                _iterative.cg_nlml(
+                    spec, h, X, y, s2, key=key, tol=1e-3,
+                    row_chunk=cg_opts["row_chunk"],
+                    max_iter=cg_opts["max_iter"],
+                    n_probes=fit_opts["n_probes"],
+                    n_lanczos=fit_opts["n_lanczos"],
+                )
+                for h in design
+            ])
+            finite = np.isfinite(vals)
+            if np.any(finite):
+                hyp0 = design[np.argmin(np.where(finite, vals, np.inf))]
 
-    hyp_opt, res = _iterative.fit_cg(
-        spec, X, y, s2=s2, hyp0=hyp0, LB=LB, UB=UB, key=key,
-        tol=float(options.get("tol_opt", tol_opt)), **fit_opts,
-    )
-    gp.fit_timings["optimize_s"] = (
-        time.perf_counter() - _t_start - gp.fit_timings["design_s"]
-    )
+    with phase(timings, "optimize_s"):
+        hyp_opt, res = _iterative.fit_cg(
+            spec, X, y, s2=s2, hyp0=hyp0, LB=LB, UB=UB, key=key,
+            tol=float(options.get("tol_opt", tol_opt)), **fit_opts,
+        )
     iters = getattr(res, "cg_iters", None)
     if iters is not None and np.any(iters >= cg_opts["max_iter"]):
         warnings.warn(
@@ -128,21 +129,15 @@ def fit_cg_path(gp, hyp0, LB, UB, PLB, PUB, options, tol_opt, s_N, _t_start):
 
     sampling_result = None
     hyp = np.reshape(hyp_opt, (1, -1))
-    if sample_requested:
-        sampling_result, hyp = _fixed_probe_chain(
-            gp, spec, hyp_opt, LB, UB, PLB, PUB, options, s_N, key, cg_opts,
-            fit_opts, X, y, s2,
-        )
-    gp.fit_timings["sample_s"] = (
-        time.perf_counter() - _t_start - gp.fit_timings["design_s"]
-        - gp.fit_timings["optimize_s"]
-    )
+    with phase(timings, "sample_s"):
+        if sample_requested:
+            sampling_result, hyp = _fixed_probe_chain(
+                gp, spec, hyp_opt, LB, UB, PLB, PUB, options, s_N, key,
+                cg_opts, fit_opts, X, y, s2,
+            )
 
-    gp.update(hyp=hyp)
-    gp.fit_timings["posterior_s"] = (
-        time.perf_counter() - _t_start - gp.fit_timings["design_s"]
-        - gp.fit_timings["optimize_s"] - gp.fit_timings["sample_s"]
-    )
+    with phase(timings, "posterior_s"):
+        gp.update(hyp=hyp)
     return hyp, res, sampling_result
 
 

@@ -25,13 +25,13 @@ design rows and the restart lanes over it.
 """
 
 import math
-import time
 
 import numpy as np
 import scipy as sp
 
 from ..core.nlml import get_fns
 from ..f_min_fill import build_design, f_min_fill
+from ..tracing import phase
 from . import map_optimize as _map_optimize
 
 
@@ -49,11 +49,10 @@ def design_and_map(
     tol,
     cov_N,
     noise_N,
-    t_start,
 ):
     """Run the space-filling design and multistart MAP optimization.
 
-    Sets ``gp.fit_timings['design_s'/'optimize_s']`` and returns
+    Adds to ``gp.fit_timings['design_s'/'optimize_s']`` and returns
     ``(hyp, nll, opt_results, opts_N, widths_default, X0, y0)``: the
     optimized starts (rows), their objective values, per-restart
     optimizer results, the possibly-reduced restart count, the slice
@@ -62,22 +61,38 @@ def design_and_map(
     for a sampler's non-finite-start fallback), else None.
 
     ``design_s`` covers building the design and ranking it on the
-    device, ``optimize_s`` the restarts.  (The JAX package's fused program
-    cannot tell its ranking from its restarts and counts both as
-    ``optimize_s``.)
+    device, ``optimize_s`` the restarts, each timed by ``tracing.phase``.
+    (The JAX package's fused program cannot tell its ranking from its
+    restarts and counts both as ``optimize_s``.)
     """
     objective_f_1 = lambda hyp_: gp._objective(hyp_)
 
     opt_backend = options.get("optimizer_backend", "device")
     fused_device = opt_backend == "device" and opts_N > 0
     X0_s = y0_s = None
+    timings = gp.fit_timings
 
     ## Space-filling design (evaluated on the device).
     if fused_device:
         hyp0_2d = np.atleast_2d(np.asarray(hyp0, dtype=np.float64))
-        if init_N > 0:
-            design = build_design(
-                hyp0_2d,
+        with phase(timings, "design_s"):
+            design = hyp0_2d
+            if init_N > 0:
+                design = build_design(
+                    hyp0_2d,
+                    LB,
+                    UB,
+                    PLB,
+                    PUB,
+                    gp.hyper_priors,
+                    init_N,
+                    init_method,
+                )
+    elif init_N > 0:
+        with phase(timings, "design_s"):
+            X0, y0 = f_min_fill(
+                objective_f_1,
+                hyp0,
                 LB,
                 UB,
                 PLB,
@@ -85,23 +100,8 @@ def design_and_map(
                 gp.hyper_priors,
                 init_N,
                 init_method,
+                f_batch=gp._objective_batch,
             )
-        else:
-            design = hyp0_2d
-        gp.fit_timings["design_s"] = time.perf_counter() - t_start
-    elif init_N > 0:
-        X0, y0 = f_min_fill(
-            objective_f_1,
-            hyp0,
-            LB,
-            UB,
-            PLB,
-            PUB,
-            gp.hyper_priors,
-            init_N,
-            init_method,
-            f_batch=gp._objective_batch,
-        )
         hyp = X0[0 : np.maximum(opts_N, 1), :]
 
         # A good low-noise candidate for the second restart
@@ -123,72 +123,45 @@ def design_and_map(
         else:
             widths_default = np.zeros(shape=PLB.shape)
     else:
-        nll = gp._objective_batch(hyp0)
+        with phase(timings, "design_s"):
+            nll = gp._objective_batch(hyp0)
         order = np.argsort(nll)
         hyp = hyp0[order, :]
         widths_default = PUB - PLB
 
-    if not fused_device:
-        gp.fit_timings["design_s"] = time.perf_counter() - t_start
-
     ## Multistart MAP optimization.
     if fused_device:
-        fns, obj_args = gp._obj_args()
-        k = int(min(opts_N, design.shape[0]))
-        low_idx = (
-            cov_N if (noise_N > 0 and 1 < opts_N < init_N) else None
-        )
-        # Optional subset RANKING of the design (off by default): each
-        # candidate's NLML costs O(N^3), so at large N the ranking
-        # dominates the design+MAP phase even though it only picks the
-        # multistart STARTING points.  options["design_subset"]=n_sub
-        # ranks the candidates on an evenly-strided n_sub-row data subset
-        # (deterministic, no RNG stream change) at O((n_sub/N)^3) of the
-        # cost; the multistart L-BFGS and every reported objective value
-        # still use the full data.  The reference ranks on the full data
-        # (f_min_fill.py:175): an opt-in deviation in start-selection
-        # fidelity only.
-        design_f_args = None
-        n_sub = int(options.get("design_subset", 0) or 0)
-        n_true = int(gp.X.shape[0])
-        if init_N > 0 and 0 < n_sub < n_true:
-            spec_d, _, _, pack_d = gp._device()
-            idx_sub = np.round(
-                np.linspace(0, n_true - 1, n_sub)
-            ).astype(int)
-            fns_sub = get_fns(spec_d, gp.s2 is not None, pack_d is not None)
-            sub = [gp._tensor(gp.X[idx_sub]), gp._tensor(gp.y[idx_sub])]
-            if gp.s2 is not None:
-                sub.append(gp._tensor(gp.s2[idx_sub]))
-            if pack_d is not None:
-                sub.append(pack_d)
-            design_f_args = tuple(sub)
-            obj_design_fn = fns_sub["obj_design_raw"]
-        else:
-            obj_design_fn = fns["obj_design_raw"]
-        (
-            xs,
-            fs,
-            opt_results,
-            w_prog,
-            X0_s,
-            y0_s,
-        ) = _map_optimize.design_optimize(
-            fns["obj_raw"],
-            design,
-            LB,
-            UB,
-            f_args=obj_args,
-            tol=tol,
-            opts_N=k,
-            low_noise_idx=low_idx,
-            obj_design_raw=obj_design_fn,
-            design_f_args=design_f_args,
-            device=gp.device,
-            timings=gp.fit_timings,
-            mesh=gp.mesh,
-        )
-        gp.fit_timings["design_s"] += gp.fit_timings.pop("rank_s")
+        with phase(timings, "optimize_s"):
+            fns, obj_args = gp._obj_args()
+            obj_design_fn, design_f_args = _design_objective(
+                gp, options, fns, init_N)
+            k = int(min(opts_N, design.shape[0]))
+            low_idx = (
+                cov_N if (noise_N > 0 and 1 < opts_N < init_N) else None
+            )
+            (
+                xs,
+                fs,
+                opt_results,
+                w_prog,
+                X0_s,
+                y0_s,
+            ) = _map_optimize.design_optimize(
+                fns["obj_raw"],
+                design,
+                LB,
+                UB,
+                f_args=obj_args,
+                tol=tol,
+                opts_N=k,
+                low_noise_idx=low_idx,
+                obj_design_raw=obj_design_fn,
+                design_f_args=design_f_args,
+                device=gp.device,
+                timings=timings,
+                mesh=gp.mesh,
+            )
+        timings["design_s"] += timings.pop("rank_s")
         opts_N = k
         hyp = np.array(xs)
         nll = np.array(fs)
@@ -226,20 +199,47 @@ def design_and_map(
 
         # Sequential L-BFGS-B restarts (none when opts_N == 0).
         objective_f_2 = lambda hyp_: gp._objective(hyp_, grad=True)
-        for i in range(opts_N):
-            res = sp.optimize.minimize(
-                fun=objective_f_2,
-                x0=hyp[i, :],
-                jac=True,
-                bounds=list(zip(LB, UB)),
-                tol=tol,
-            )
-            opt_results.append(res)
-            hyp[i, :] = res.x
-            nll[i] = res.fun
-
-    gp.fit_timings["optimize_s"] = (
-        time.perf_counter() - t_start - gp.fit_timings["design_s"]
-    )
+        with phase(timings, "optimize_s"):
+            for i in range(opts_N):
+                res = sp.optimize.minimize(
+                    fun=objective_f_2,
+                    x0=hyp[i, :],
+                    jac=True,
+                    bounds=list(zip(LB, UB)),
+                    tol=tol,
+                )
+                opt_results.append(res)
+                hyp[i, :] = res.x
+                nll[i] = res.fun
 
     return hyp, nll, opt_results, opts_N, widths_default, X0_s, y0_s
+
+
+def _design_objective(gp, options, fns, init_N):
+    """(objective, its data arguments or None for the fit's own) that
+    ranks the fused path's design.
+
+    Optional subset RANKING of the design (off by default): each
+    candidate's NLML costs O(N^3), so at large N the ranking dominates
+    the design+MAP phase even though it only picks the multistart
+    STARTING points.  options["design_subset"]=n_sub ranks the
+    candidates on an evenly-strided n_sub-row data subset
+    (deterministic, no RNG stream change) at O((n_sub/N)^3) of the
+    cost; the multistart L-BFGS and every reported objective value
+    still use the full data.  The reference ranks on the full data
+    (f_min_fill.py:175): an opt-in deviation in start-selection
+    fidelity only.
+    """
+    n_sub = int(options.get("design_subset", 0) or 0)
+    n_true = int(gp.X.shape[0])
+    if not (init_N > 0 and 0 < n_sub < n_true):
+        return fns["obj_design_raw"], None
+    spec_d, _, _, pack_d = gp._device()
+    idx_sub = np.round(np.linspace(0, n_true - 1, n_sub)).astype(int)
+    fns_sub = get_fns(spec_d, gp.s2 is not None, pack_d is not None)
+    sub = [gp._tensor(gp.X[idx_sub]), gp._tensor(gp.y[idx_sub])]
+    if gp.s2 is not None:
+        sub.append(gp._tensor(gp.s2[idx_sub]))
+    if pack_d is not None:
+        sub.append(pack_d)
+    return fns_sub["obj_design_raw"], tuple(sub)

@@ -78,13 +78,13 @@ Left out, with the JAX package's lines:
 """
 
 import math
-import time
 from collections import deque
 
 import numpy as np
 import torch
 
 from .._config import resolve_device
+from ..tracing import phase
 
 _BIG = 1e4  # |z| cap keeping sigmoid/exp transforms non-degenerate
 
@@ -451,41 +451,42 @@ def design_optimize(
     returned objective values always use the full ``f_args``.
 
     ``device`` (default: that of the tensors in ``f_args``, else the card)
-    is where the objective is evaluated.  ``timings``, when a dict, gets
-    the seconds of the ranking under ``"rank_s"``.  ``mesh`` (a
+    is where the objective is evaluated.  ``timings``, when a dict, adds
+    the seconds of the ranking to ``"rank_s"``.  ``mesh`` (a
     ``parallel.mesh.Mesh``) shards the design rows and the restart lanes
     over its devices (module docstring); it takes the place of
     ``device``.
     """
-    t_rank = time.perf_counter()
-    design = np.atleast_2d(np.asarray(design, dtype=np.float64))
-    B0 = design.shape[0]
-    opts_N = int(min(opts_N, B0))
-    if chunk is None:
-        chunk = B0
-    chunk = int(max(1, min(chunk, B0)))
-    f_args = tuple(f_args)
-    design_f_args = f_args if design_f_args is None else tuple(design_f_args)
-    obj_design = obj_design_raw if obj_design_raw is not None else obj_raw
-    if mesh is None:
-        shards = [(_args_device(f_args, device), f_args, design_f_args)]
-    else:
-        chunk = int(max(1, min(chunk, -(-B0 // mesh.size))))
-        shards = list(zip(mesh.devices, mesh.replicate(f_args),
-                          mesh.replicate(design_f_args)))
+    with phase(timings, "rank_s"):
+        design = np.atleast_2d(np.asarray(design, dtype=np.float64))
+        B0 = design.shape[0]
+        opts_N = int(min(opts_N, B0))
+        if chunk is None:
+            chunk = B0
+        chunk = int(max(1, min(chunk, B0)))
+        f_args = tuple(f_args)
+        design_f_args = (f_args if design_f_args is None
+                         else tuple(design_f_args))
+        obj_design = (obj_design_raw if obj_design_raw is not None
+                      else obj_raw)
+        if mesh is None:
+            shards = [(_args_device(f_args, device), f_args, design_f_args)]
+        else:
+            chunk = int(max(1, min(chunk, -(-B0 // mesh.size))))
+            shards = list(zip(mesh.devices, mesh.replicate(f_args),
+                              mesh.replicate(design_f_args)))
 
-    # Shard i ranks rows [i * rows, (i + 1) * rows), whole chunks a shard.
-    rows = -(-B0 // (len(shards) * chunk)) * chunk
-    ys = np.concatenate([
-        _eval_design(obj_design, design[i * rows : (i + 1) * rows], chunk,
-                     d_args, dev)
-        for i, (dev, _, d_args) in enumerate(shards) if i * rows < B0
-    ])
-    starts, widths_default, X_sorted, y_sorted = _select_starts(
-        design, ys, opts_N, low_noise_idx
-    )
-    if timings is not None:
-        timings["rank_s"] = time.perf_counter() - t_rank
+        # Shard i ranks rows [i * rows, (i + 1) * rows), whole chunks a
+        # shard.
+        rows = -(-B0 // (len(shards) * chunk)) * chunk
+        ys = np.concatenate([
+            _eval_design(obj_design, design[i * rows : (i + 1) * rows],
+                         chunk, d_args, dev)
+            for i, (dev, _, d_args) in enumerate(shards) if i * rows < B0
+        ])
+        starts, widths_default, X_sorted, y_sorted = _select_starts(
+            design, ys, opts_N, low_noise_idx
+        )
     # Shard i runs lanes [i * lanes, (i + 1) * lanes).
     lanes = -(-starts.shape[0] // len(shards))
     runs = [

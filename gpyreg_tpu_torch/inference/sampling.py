@@ -41,19 +41,20 @@ Left out, with the JAX package's lines:
   one prior a sample;
 - ``map_optimize.chain_segment_plan`` of the gradient samplers' branches
   (:417-419, :444-449, :471-476): it sizes the TPU-only segmented chains;
-- the compile log and ``trace_dir`` of the warm refit (:307-311).
+- the compile log of the warm refit (:307-311); ``GP.fit``'s
+  ``trace_dir`` profiles the refit as any other fit.
 
 A fault of the JAX package that the port does not copy: its host backend
 drops ``sample_width_base`` (:519-524); the port passes it to
 ``SliceSampler`` as ``width_base``.
 """
 
-import time
 import warnings
 
 import numpy as np
 
 from ..slice_sample import SliceSampler, effective_n, gelman_rubin
+from ..tracing import phase
 from . import device_slice as _device_slice
 from . import ensemble_slice as _ensemble_slice
 from . import hmc as _hmc
@@ -155,16 +156,13 @@ def slicelite_ess(gp, hyp0, options, thin):
     return hyp_prev, int(thin_eff), float(ess_frac)
 
 
-def slicelite_warm_refit(gp, warm, s_N, LB, UB, PLB, PUB, widths, options,
-                         t_start):
+def slicelite_warm_refit(gp, warm, s_N, LB, UB, PLB, PUB, widths, options):
     """The ESS-shortcut sampling phase: each previous sample seeds a
     no-adaptation slice chain advanced ``thin_eff`` sweeps
     (gplite_train.m:370-380 slicelite with Nopts==0: Adaptive=false,
     starts = previous samples replicated to Ns rows, Burnin =
     Thin_eff*Ns)."""
     hyp_prev, thin_eff, ess_frac = warm
-    gp.fit_timings["design_s"] = 0.0
-    gp.fit_timings["optimize_s"] = time.perf_counter() - t_start
     widths_w = widths
     if widths_w is None:
         widths_w = getattr(gp, "_warm_widths", None)
@@ -175,28 +173,29 @@ def slicelite_warm_refit(gp, warm, s_N, LB, UB, PLB, PUB, widths, options,
     # float32 noise floor may have moved LB).
     x0s = hyp_prev[np.arange(s_N) % hyp_prev.shape[0]]
     x0s = np.minimum(np.maximum(x0s, LB), UB)
-    fns, obj_args = gp._obj_args()
-    stream = _new_stream()
-    release_posterior_factors(gp)
-    samples, f_vals, n_evals, n_sweeps = _device_slice.sample_chains(
-        fns["log_post_chain_raw"],
-        x0s,
-        stream,
-        widths=widths_w,
-        LB=LB,
-        UB=UB,
-        n_samples=1,
-        thin=1,
-        burn=thin_eff - 1,
-        adaptive=False,
-        f_args=obj_args,
-        mesh=gp.mesh,
-    )
-    samples, f_vals = samples[:, 0, :], f_vals[:, 0]
-    # The refreshed chains target the log posterior; split the prior out
-    # of f_vals per the sampling_result contract.
-    log_priors = sample_log_priors(gp, samples, fns, obj_args)
-    f_vals = f_vals - log_priors
+    with phase(gp.fit_timings, "sample_s"):
+        fns, obj_args = gp._obj_args()
+        stream = _new_stream()
+        release_posterior_factors(gp)
+        samples, f_vals, n_evals, n_sweeps = _device_slice.sample_chains(
+            fns["log_post_chain_raw"],
+            x0s,
+            stream,
+            widths=widths_w,
+            LB=LB,
+            UB=UB,
+            n_samples=1,
+            thin=1,
+            burn=thin_eff - 1,
+            adaptive=False,
+            f_args=obj_args,
+            mesh=gp.mesh,
+        )
+        samples, f_vals = samples[:, 0, :], f_vals[:, 0]
+        # The refreshed chains target the log posterior; split the prior
+        # out of f_vals per the sampling_result contract.
+        log_priors = sample_log_priors(gp, samples, fns, obj_args)
+        f_vals = f_vals - log_priors
     sampling_result = {
         "samples": samples,
         "f_vals": f_vals.reshape(-1, 1),
@@ -209,14 +208,9 @@ def slicelite_warm_refit(gp, warm, s_N, LB, UB, PLB, PUB, widths, options,
         "n_evals": n_evals,
         "n_sweeps": n_sweeps,
     }
-    gp.fit_timings["sample_s"] = (
-        time.perf_counter() - t_start - sum(gp.fit_timings.values())
-    )
-    store_warm_state(gp, samples, sampling_result, 1, widths_w)
-    gp.update(hyp=samples)
-    gp.fit_timings["posterior_s"] = (
-        time.perf_counter() - t_start - sum(gp.fit_timings.values())
-    )
+    with phase(gp.fit_timings, "posterior_s"):
+        store_warm_state(gp, samples, sampling_result, 1, widths_w)
+        gp.update(hyp=samples)
     return samples, None, sampling_result
 
 

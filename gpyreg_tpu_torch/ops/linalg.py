@@ -24,6 +24,7 @@ bounds XLA's solve temporaries.
 import torch
 
 from .._config import CHOL_MAX_TRIES
+from ..tracing import span
 
 
 def _diag(A):
@@ -59,33 +60,41 @@ def _jittered_cholesky_impl(K, sn2_vec):
     ``K`` is overwritten with G(1): at N = 16384 every (N, N) copy is
     1 GB per sample, and K is not needed afterwards.
     """
-    N = K.shape[-1]
-    batch = K.shape[:-2]
-    Kb = K.reshape(-1, N, N)
-    sn2 = torch.broadcast_to(sn2_vec, batch + (N,)).reshape(-1, N)
-    B = Kb.shape[0]
-    diag_k = _diag(Kb).clone()
-    _diag(Kb).add_(sn2)
-    L = torch.empty_like(Kb)
-    info = torch.empty((B,), dtype=torch.int32, device=K.device)
-    for i in range(B):  # one matrix at a time, see _each
-        L[i], info[i] = torch.linalg.cholesky_ex(Kb[i])
-    mult = torch.ones((B,), dtype=K.dtype, device=K.device)
-    bad = info != 0
-    tries = 1
-    while tries < CHOL_MAX_TRIES and bool(bad.any()):
-        for i in torch.nonzero(bad).flatten().tolist():
-            mult[i] = mult[i] * 10.0
-            G = Kb[i].clone()
-            # Same diagonal as K + m*diag(sn2); the off-diagonal is K's.
-            _diag(G).copy_(diag_k[i] + mult[i] * sn2[i])
-            L[i], info[i] = torch.linalg.cholesky_ex(G)
-            del G
+    with span("gpyreg.chol"):
+        N = K.shape[-1]
+        batch = K.shape[:-2]
+        Kb = K.reshape(-1, N, N)
+        sn2 = torch.broadcast_to(sn2_vec, batch + (N,)).reshape(-1, N)
+        B = Kb.shape[0]
+        diag_k = _diag(Kb).clone()
+        _diag(Kb).add_(sn2)
+        L = torch.empty_like(Kb)
+        info = torch.empty((B,), dtype=torch.int32, device=K.device)
+        for i in range(B):  # one matrix at a time, see _each
+            L[i], info[i] = torch.linalg.cholesky_ex(Kb[i])
+        mult = torch.ones((B,), dtype=K.dtype, device=K.device)
         bad = info != 0
-        tries += 1
-    if bool(bad.any()):
-        L[bad] = float("nan")
-    return L.reshape(K.shape), mult.reshape(batch)
+        for _ in range(1, CHOL_MAX_TRIES):
+            with span("gpyreg.sync.chol_retry"):
+                if not bool(bad.any()):
+                    break
+            with span("gpyreg.chol.retry"):
+                with span("gpyreg.sync.chol_rows"):
+                    rows = torch.nonzero(bad).flatten().tolist()
+                for i in rows:
+                    mult[i] = mult[i] * 10.0
+                    G = Kb[i].clone()
+                    # Same diagonal as K + m*diag(sn2); the off-diagonal
+                    # is K's.
+                    _diag(G).copy_(diag_k[i] + mult[i] * sn2[i])
+                    L[i], info[i] = torch.linalg.cholesky_ex(G)
+                    del G
+                bad = info != 0
+        with span("gpyreg.sync.chol_failed"):
+            failed = bool(bad.any())
+        if failed:
+            L[bad] = float("nan")
+        return L.reshape(K.shape), mult.reshape(batch)
 
 
 def _cholesky_vjp_core(L, L_bar):
@@ -141,9 +150,11 @@ def jittered_cholesky(K, sn2_vec):
 def chol_solve(L, b):
     """Solve (L L^T) x = b given lower Cholesky factors (one, or a
     batch on the leading axis)."""
-    if L.ndim == 2:
-        return torch.cholesky_solve(b, L, upper=False)
-    return _each(chol_solve, L, b.expand(L.shape[:-2] + b.shape[-2:]))
+    with span("gpyreg.solve"):
+        if L.ndim == 2:
+            return torch.cholesky_solve(b, L, upper=False)
+        return _each(lambda Li, bi: torch.cholesky_solve(bi, Li, upper=False),
+                     L, b.expand(L.shape[:-2] + b.shape[-2:]))
 
 
 class QuadLogdet(torch.autograd.Function):
@@ -178,7 +189,9 @@ class QuadLogdet(torch.autograd.Function):
         if h_bar is None:
             G_bar = torch.zeros_like(L)
         else:
-            G_bar = torch.cholesky_inverse(L, upper=False).mul_(0.5 * h_bar)
+            with span("gpyreg.chol_inverse"):
+                G_bar = torch.cholesky_inverse(L, upper=False)
+                G_bar.mul_(0.5 * h_bar)
         a = alpha.reshape(-1)
         if q_bar is not None:
             G_bar.addr_(a * -q_bar, a)
@@ -210,11 +223,6 @@ def neg_inverse_from_chol(L):
     return _each(neg_inverse_from_chol, L)
 
 
-# How each call of :func:`robust_cholesky` factorized its matrix: the
-# Cholesky factorization, or the eigendecomposition after it failed.
-ROBUST_ROUTES = {"cholesky": 0, "eigh": 0}
-
-
 def robust_cholesky(sigma):
     """A factor T with T^T T = sigma (``gpyreg_tpu/ops/linalg.py:633-662``,
     reference ``__robust_cholesky``, gaussian_process.py:2331-2355).
@@ -224,13 +232,13 @@ def robust_cholesky(sigma):
     largest magnitude, eigenvalues below eps * max(w) * n dropped, and
     zeros when a kept eigenvalue is negative.  Returns the upper factor
     (the transposed Cholesky factor, or sqrt(w) U^T from the fallback).
-    Adds one to ``ROBUST_ROUTES`` under the route it took."""
+    The route taken is the span ``gpyreg.robust_cholesky.cholesky`` or
+    ``gpyreg.robust_cholesky.eigh``."""
     Lc, info = torch.linalg.cholesky_ex(sigma)
     if int(info) == 0:
-        ROBUST_ROUTES["cholesky"] += 1
-        T = Lc.mT
-    else:
-        ROBUST_ROUTES["eigh"] += 1
+        with span("gpyreg.robust_cholesky.cholesky"):
+            return Lc.mT
+    with span("gpyreg.robust_cholesky.eigh"):
         n = sigma.shape[0]
         w, U = torch.linalg.eigh(0.5 * (sigma + sigma.mT))
         cols = torch.arange(n, device=U.device)
@@ -239,9 +247,7 @@ def robust_cholesky(sigma):
         tol = torch.abs(torch.finfo(sigma.dtype).eps * torch.max(w)) * n
         keep = torch.abs(w) > tol
         if bool(torch.any(keep & (w < 0))):
-            T = torch.zeros_like(sigma)
-        else:
-            w_safe = torch.where(keep, torch.clamp(w, min=0.0),
-                                 torch.zeros_like(w))
-            T = torch.sqrt(w_safe)[:, None] * U.mT
-    return T
+            return torch.zeros_like(sigma)
+        w_safe = torch.where(keep, torch.clamp(w, min=0.0),
+                             torch.zeros_like(w))
+        return torch.sqrt(w_safe)[:, None] * U.mT

@@ -52,12 +52,12 @@ and ``_idx`` (:69-73), the int32 start indices of ``dynamic_slice``.
 """
 
 import math
-import time
 
 import numpy as np
 import torch
 
 from ..core.model import ModelSpec, cov_matrix, mean_value, noise_variance
+from ..tracing import phase
 from .mesh import Mesh, _pad_rows, _tensor, all_gather, psum
 
 _LOG_2PI = math.log(2.0 * math.pi)
@@ -238,9 +238,11 @@ def dist_exact_fit(spec: ModelSpec, mesh: Mesh, hyp, X, y, s2=None,
     default).  ``algorithm`` is "masked_full" or "two_level", the JAX
     package's two loops, which compute the same factor here (module
     docstring).  ``X`` (numpy or a tensor) sets the dtype.  Output warping
-    is refused.  ``timings``, when a dict, gets the seconds of the build
+    is refused.  ``timings``, when a dict, adds the seconds of the build
     and factorization (``"factor_s"``) and of the solves and the NLML
-    (``"solve_s"``), each ended by synchronizing the mesh's devices.
+    (``"solve_s"``), each ended by synchronizing the mesh's devices
+    (``tracing.phase``: the spans ``gpyreg.fit.factor`` and
+    ``gpyreg.fit.solve``).
     """
     if spec.outwarp is not None:
         raise ValueError(
@@ -259,32 +261,31 @@ def dist_exact_fit(spec: ModelSpec, mesh: Mesh, hyp, X, y, s2=None,
     y = _pad_rows(y, Np, 0.0)
     if s2 is not None:
         s2 = _pad_rows(_tensor(s2).to(home, X.dtype), Np, 1.0)
-    t0 = time.perf_counter()
     with torch.no_grad():
-        hyp_cov, mask, sW, r, log_sn2_sum = _scaled_model(
-            spec, _hyp_tensor(hyp, X), X, y, s2, N)
-        slabs = _cholesky(
-            _build_slabs(spec, mesh, hyp_cov, X, mask, sW, float(jitter)),
-            mesh.devices, b)
-        if timings is not None:
-            _synchronize(mesh)
-            timings["factor_s"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-        sW_r = [(sW * r[:, 0])[i * rows : (i + 1) * rows, None].to(d)
-                for i, d in enumerate(mesh.devices)]
-        z = _solve_lower(slabs, mesh.devices, b, sW_r)
-        x = _solve_upper(slabs, mesh.devices, b, z)
-        alphas = [sW[i * rows : (i + 1) * rows, None].to(d) * xi
-                  for i, (d, xi) in enumerate(zip(mesh.devices, x))]
-        quad = psum([torch.sum(zi * zi) for zi in z], home)
-        logdet_half = psum(
-            [torch.sum(torch.log(slab.diagonal(offset=i * rows)))
-             for i, slab in enumerate(slabs)], home)
-        nlml = (0.5 * quad + logdet_half + 0.5 * log_sn2_sum
-                + 0.5 * N * _LOG_2PI)
-    if timings is not None:
-        _synchronize(mesh)
-        timings["solve_s"] = time.perf_counter() - t0
+        with phase(timings, "factor_s"):
+            hyp_cov, mask, sW, r, log_sn2_sum = _scaled_model(
+                spec, _hyp_tensor(hyp, X), X, y, s2, N)
+            slabs = _cholesky(
+                _build_slabs(spec, mesh, hyp_cov, X, mask, sW,
+                             float(jitter)),
+                mesh.devices, b)
+            if timings is not None:
+                _synchronize(mesh)
+        with phase(timings, "solve_s"):
+            sW_r = [(sW * r[:, 0])[i * rows : (i + 1) * rows, None].to(d)
+                    for i, d in enumerate(mesh.devices)]
+            z = _solve_lower(slabs, mesh.devices, b, sW_r)
+            x = _solve_upper(slabs, mesh.devices, b, z)
+            alphas = [sW[i * rows : (i + 1) * rows, None].to(d) * xi
+                      for i, (d, xi) in enumerate(zip(mesh.devices, x))]
+            quad = psum([torch.sum(zi * zi) for zi in z], home)
+            logdet_half = psum(
+                [torch.sum(torch.log(slab.diagonal(offset=i * rows)))
+                 for i, slab in enumerate(slabs)], home)
+            nlml = (0.5 * quad + logdet_half + 0.5 * log_sn2_sum
+                    + 0.5 * N * _LOG_2PI)
+            if timings is not None:
+                _synchronize(mesh)
     return DistExactPosterior(spec, mesh, b, Np, N,
                               np.asarray(hyp, dtype=np.float64), X, slabs,
                               alphas, sW, nlml)

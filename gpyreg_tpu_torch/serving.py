@@ -46,17 +46,16 @@ from .core.model import ModelSpec, cov_matrix, mean_value
 from .ops.kernels import kernel_matrix_plain
 from .ops.linalg import robust_cholesky
 from .parallel.mesh import all_gather
+from .tracing import span, to_device
 
 
 def _post_small(alphas, mults, sn2mins):
     """Per-sample scalars the host needs, in ONE device-to-host copy:
     rows [sn2_mult, sn2_min, any-NaN flag] as a float64 numpy array."""
     bad = torch.isnan(alphas).flatten(1).any(dim=1)
-    return (
-        torch.stack([mults.double(), sn2mins.double(), bad.double()])
-        .cpu()
-        .numpy()
-    )
+    rows = torch.stack([mults.double(), sn2mins.double(), bad.double()])
+    with span("gpyreg.sync.posterior"):
+        return rows.cpu().numpy()
 
 
 def _scaled_upper_batch(Ls, sls):
@@ -64,7 +63,7 @@ def _scaled_upper_batch(Ls, sls):
     stores chol(K/sl + I) upper, gaussian_process.py:2413).  Scales
     ``Ls`` in place and returns its transposed view: no second copy of
     the (S, N, N) factors."""
-    sls = torch.as_tensor(sls, dtype=Ls.dtype, device=Ls.device)
+    sls = to_device("scales", sls, Ls.dtype, Ls.device)
     Ls.div_(torch.sqrt(sls)[:, None, None])
     return Ls.mT
 
@@ -72,11 +71,9 @@ def _scaled_upper_batch(Ls, sls):
 def _sw_batch(Ls, sn2mins, mults):
     """sW column vectors 1/sqrt(min(sn2)*mult), constant per sample
     (reference gaussian_process.py:2514): (S, N, 1)."""
-    vals = torch.as_tensor(
-        1.0 / np.sqrt(np.asarray(sn2mins) * np.asarray(mults)),
-        dtype=Ls.dtype,
-        device=Ls.device,
-    )
+    vals = to_device("scales",
+                     1.0 / np.sqrt(np.asarray(sn2mins) * np.asarray(mults)),
+                     Ls.dtype, Ls.device)
     S, N = Ls.shape[0], Ls.shape[1]
     return vals[:, None, None].expand(S, N, 1)
 
@@ -92,7 +89,7 @@ def _masked_ks(spec, hyp_cov, X, n_real, xs, differentiable=False):
 
 
 def _prior_moments(spec, hyp, xs):
-    hyp = torch.as_tensor(hyp).to(dtype=xs.dtype, device=xs.device)
+    hyp = to_device("chunk_hyp", hyp, xs.dtype, xs.device)
     hyp_cov, _, hyp_mean = spec.split_hyp(hyp)
     m_star = mean_value(spec, hyp_mean, xs)
     kss = cov_matrix(spec, hyp_cov, xs, diag=True)
@@ -301,9 +298,10 @@ def predict_chunked(spec: ModelSpec, flag, hyp, alpha, L, sW, X, n_real, xs,
     s2 = torch.empty((M,), dtype=xs.dtype, device=xs.device)
     for start in range(0, M, chunk):
         stop = min(start + chunk, M)
-        mu[start:stop], s2[start:stop] = branch(
-            spec, hyp, alpha, L, sW, X, n_real, xs[start:stop]
-        )
+        with span("gpyreg.predict.chunk"):
+            mu[start:stop], s2[start:stop] = branch(
+                spec, hyp, alpha, L, sW, X, n_real, xs[start:stop]
+            )
     return mu, s2
 
 

@@ -12,6 +12,9 @@ the same L-BFGS-B on objectives that agree to 1e-8, so the
 hyperparameters themselves agree to 1e-4.  Each JAX fit is compiled once,
 in a module-scoped fixture."""
 
+import json
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -220,10 +223,9 @@ def test_float32_fit_on_the_cpu_respects_the_noise_floor():
     assert abs(_objective(g64, hyp) - res.fun) < 1e-3 * max(1.0, abs(res.fun))
 
 
-# Options the port refuses, each raising before any state changes:
-# trace_dir (a JAX profiler hook, not ported) and output warping with the
-# matrix-free method, by option or on the GP (the JAX package's CG
-# objective never warps y).
+# Options the port refuses, each raising before any state changes: output
+# warping with the matrix-free method, by option or on the GP (the JAX
+# package's CG objective never warps y).
 _WARP = gt.outwarp_functions.NegativePower
 LEFT_OUT = {
     "cg": ({"n_samples": 0, "method": "cg", "outwarp_fun": _WARP()}, {},
@@ -233,8 +235,6 @@ LEFT_OUT = {
                              {}, ValueError, "Output warping"),
     "outwarp_fun": ({"n_samples": 0, "method": "cg"}, {"outwarp": _WARP()},
                     ValueError, "Output warping"),
-    "trace_dir": ({"n_samples": 0, "trace_dir": "somewhere"}, {},
-                  NotImplementedError, "profile"),
 }
 
 
@@ -247,6 +247,94 @@ def test_left_out_options_raise_and_change_nothing(case):
         g.fit(X, y, options=options)
     assert g.X is None and g.posteriors is None
     assert not hasattr(g, "fit_timings")
+
+
+# trace_dir: the fit under torch.profiler, its trace written into the
+# directory.  Each case's phase spans, and the port's spans inside them;
+# the set-up before the design is a design span of its own, as its
+# seconds count toward design_s.
+TRACED = {
+    "map": (dict(BASE), {"design", "rank", "optimize", "posterior"}),
+    "scipy": ({**BASE, "optimizer_backend": "scipy"},
+              {"design", "optimize", "posterior"}),
+    "sampled": ({"n_samples": 2, "thin": 1, "burn": 2, "init_N": 16,
+                 "opts_N": 1}, {"design", "rank", "optimize", "sample",
+                                "posterior"}),
+    "cg": ({"method": "cg", "n_samples": 0, "cg_row_chunk": 64,
+            "cg_init_N": 6, "cg_max_opt_iter": 6},
+           {"design", "optimize", "sample", "posterior"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TRACED))
+def test_trace_dir_writes_the_fits_phase_spans(case, tmp_path):
+    options, phases = TRACED[case]
+    g, _, _, _ = _fit(gt, {**options, "trace_dir": str(tmp_path / "t")},
+                      device="cpu")
+    (path,) = (tmp_path / "t").iterdir()
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert {n[len("gpyreg.fit."):] for n in names
+            if n.startswith("gpyreg.fit.")} == phases
+    assert all(names.count(f"gpyreg.fit.{p}") == 1 + (p == "design")
+               for p in phases)
+    if case != "cg":  # a CG fit stores matrix-free posteriors, unbuilt
+        assert {"gpyreg.update.full", "gpyreg.chol",
+                "gpyreg.sync.chol_failed"} <= set(names)
+    # The phases' host-clock seconds are kept as without the profiler.
+    assert set(g.fit_timings) == {f"{p}_s" for p in phases} - {"rank_s"}
+    assert not torch.autograd._profiler_enabled()
+
+
+def test_trace_dir_changes_no_result(torch_fits, tmp_path):
+    g, hyp, res, _ = torch_fits["fused"]
+    g_t, hyp_t, res_t, _ = _fit(gt, {**BASE, "trace_dir": str(tmp_path)},
+                                device="cpu")
+    assert np.array_equal(hyp_t, hyp) and res_t.fun == res.fun
+    assert torch.equal(g_t.posteriors[0].alpha, g.posteriors[0].alpha)
+    assert [r.nit for r in g_t.fit_report["restarts"]] == [
+        r.nit for r in g.fit_report["restarts"]]
+
+
+# fit_timings: the phases add up to the fit's time, as in the JAX
+# package, whichever path the fit takes.  The slicelite cases refit a GP
+# fitted once: on the same data the warm refit takes the ESS shortcut, on
+# new data it falls back to the full fit.
+LITE = {"n_samples": 4, "thin": 1, "burn": 4, "init_N": 16, "opts_N": 0,
+        "sampler": "slicelite"}
+WALL = {
+    "map": dict(BASE),
+    "scipy": {**BASE, "optimizer_backend": "scipy"},
+    "sampled": TRACED["sampled"][0],
+    "cg": TRACED["cg"][0],
+    "slicelite_warm": LITE,
+    "slicelite_low_ess": LITE,
+}
+
+
+@pytest.mark.parametrize("case", sorted(WALL))
+def test_fit_timings_add_up_to_the_fits_time(case):
+    X, y = _data()
+    g = _make(gt, device="cpu")
+    if case.startswith("slicelite"):
+        np.random.seed(1)
+        g.fit(X, y, options=dict(LITE))
+        if case == "slicelite_low_ess":
+            y = 5.0 * np.cos(2.0 * X[:, :1] * X[:, 1:])
+    np.random.seed(2)
+    t0 = time.perf_counter()
+    g.fit(X, y, options=dict(WALL[case]))
+    wall = time.perf_counter() - t0
+    timings = g.fit_timings
+    assert all(v >= 0 for v in timings.values())
+    assert 0 <= wall - sum(timings.values()) < 0.005 + 0.01 * wall
+    if case.startswith("slicelite"):
+        assert list(timings) == ["design_s", "optimize_s", "sample_s",
+                                 "posterior_s"]
+        warm = case == "slicelite_warm"
+        assert (g.slicelite_ess_frac > 0.5) == warm
+        assert (timings["design_s"] == 0.0) == warm
 
 
 def test_unknown_names_raise_value_errors():
