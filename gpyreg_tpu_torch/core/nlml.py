@@ -36,7 +36,7 @@ import math
 import torch
 
 from .._config import CHOL_MAX_TRIES
-from ..ops.linalg import chol_solve, jittered_cholesky, quad_logdet
+from ..ops.linalg import chol_solve, factor_ex, jittered_cholesky, quad_logdet
 from ..outwarp_functions import warp_value_and_dt
 from ..tracing import span, to_device
 from .model import ModelSpec, cov_matrix, mean_value, noise_variance
@@ -189,7 +189,7 @@ def nlz_chain(spec: ModelSpec, hyp, X, y, s2, n_real=None):
         K, sn2_vec, r, _, log_jac = assemble(spec, h, X, y, s2, n_real)
         mult = torch.ones((), dtype=X.dtype, device=X.device)
         K.diagonal().add_(sn2_vec)
-        L, info = torch.linalg.cholesky_ex(K)
+        L, info = factor_ex(K)
         del K
         for _ in range(1, CHOL_MAX_TRIES):
             with span("gpyreg.sync.chain_retry"):
@@ -200,7 +200,7 @@ def nlz_chain(spec: ModelSpec, hyp, X, y, s2, n_real=None):
                 del L
                 K = _cov_masked(spec, hyp_cov, X, n_real)
                 K.diagonal().add_(mult * sn2_vec)
-                L, info = torch.linalg.cholesky_ex(K)
+                L, info = factor_ex(K)
                 del K
         with span("gpyreg.sync.chain_failed"):
             failed = bool(info != 0)
@@ -225,7 +225,7 @@ def nlz_design(spec: ModelSpec, hyp, X, y, s2, n_real=None):
     def one(h):
         K, sn2_vec, r, _, log_jac = assemble(spec, h, X, y, s2, n_real)
         K.diagonal().add_(sn2_vec)
-        L, info = torch.linalg.cholesky_ex(K)
+        L, info = factor_ex(K)
         del K
         alpha = chol_solve(L, r)
         n_eff = N if n_real is None else n_real
