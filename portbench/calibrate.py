@@ -42,8 +42,9 @@ def main():
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--out")
     args = p.parse_args()
-    if not torch.cuda.is_available():
-        print("calibrate.py needs a CUDA device", file=sys.stderr)
+    chips = harness.Cell(ROOT, args.workload).chips
+    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+        print(f"calibrate.py needs {chips} CUDA device(s)", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -66,7 +67,7 @@ def main():
             "attempted": result["attempted"],
         })
         print(json.dumps(out["runs"][-1]), file=sys.stderr, flush=True)
-        torch.cuda.empty_cache()
+        harness.empty_caches(harness.cell_devices("cuda", chips))
     text = json.dumps(out)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -87,7 +87,7 @@ def make_gp(cfg, device):
 
 def sync(device):
     if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+        torch.cuda.synchronize(device)
 
 
 def choose(rng, count, k, last=True):

@@ -5,7 +5,10 @@ spans, and the arithmetic the readers share.
 Device busy time is the union of the intervals of the ``kernel``,
 ``gpu_memcpy`` and ``gpu_memset`` events (device events only, so an
 operator and the kernels under it are never counted twice), the
-arithmetic of ``tools/profile_torch_slice.py``'s ``_union_us``.
+arithmetic of ``tools/profile_torch_slice.py``'s ``_union_us``, taken
+per device: each device event keeps its card's index (the trace's
+``args.device``), and a cell on several cards reads each card's busy
+time apart, so that one busy card never counts as a busy machine.
 """
 
 import json
@@ -36,26 +39,37 @@ def union_us(intervals):
 
 class Trace:
     """Events of one profiled window, in microseconds: ``device`` (name,
-    start, end), ``spans`` (the benchmark's ``record_function`` spans),
+    start, end) on every card, ``per_device`` (the same rows by the
+    card's index), ``spans`` (the benchmark's ``record_function`` spans),
     ``ops`` (host operators) and ``steps`` (the step spans)."""
 
     def __init__(self, events):
-        def rows(cats):
-            return [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                    for e in events if e.get("cat") in cats and "dur" in e]
+        def row(e):
+            return (e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
 
-        self.device = rows(DEVICE_CATS)
+        def rows(cats):
+            return [row(e) for e in events if e.get("cat") in cats and "dur" in e]
+
+        self.device, self.per_device = [], {}
+        for e in events:
+            if e.get("cat") in DEVICE_CATS and "dur" in e:
+                self.device.append(row(e))
+                index = int(e.get("args", {}).get("device", 0))
+                self.per_device.setdefault(index, []).append(row(e))
         self.spans = rows(("user_annotation",))
         self.ops = rows(("cpu_op",))
         self.steps = sorted((a, b) for n, a, b in self.spans if n == STEP_SPAN)
 
-    def in_steps(self):
-        """Device events that start inside a step span."""
-        return [(n, a, b) for n, a, b in self.device
+    def in_steps(self, device=None):
+        """Device events that start inside a step span: on every card, or
+        on the card of index ``device``."""
+        rows = self.device if device is None else self.per_device.get(device, [])
+        return [(n, a, b) for n, a, b in rows
                 if any(s <= a <= e for s, e in self.steps)]
 
-    def busy_us(self):
-        return union_us((a, b) for _, a, b in self.in_steps())
+    def busy_us(self, device):
+        """The busy time of the card of index ``device`` in the steps."""
+        return union_us((a, b) for _, a, b in self.in_steps(device))
 
     def window_us(self):
         return sum(b - a for a, b in self.steps)
@@ -101,12 +115,12 @@ class Trace:
         return out
 
 
-def capture(run, device):
-    """Run ``run()`` under the profiler and return its :class:`Trace`.
-    The Chrome trace goes to a temporary file, which is removed once it is
-    read."""
+def capture(run, platform):
+    """Run ``run()`` under the profiler, which traces every card of the
+    process, and return its :class:`Trace`.  The Chrome trace goes to a
+    temporary file, which is removed once it is read."""
     acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
+    if platform == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         run()

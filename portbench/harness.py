@@ -20,6 +20,13 @@ time reaches ``--seconds`` (inputs are made between steps, outside the
 timing), the peak device memory, with ``--trace 1`` a few more steps
 under the profiler, then the program's state is dropped and what it
 produced is judged against the float64 reference.
+
+A cell's ``chips`` are its devices: the first ``chips`` CUDA cards
+(``cuda:0`` ...), or as many CPU devices on the CPU, as
+``make_mesh(n, device="cpu")`` takes them.  The kind's runner gets them
+all; the result reads each card apart: the peak memory is the fullest
+card's, ``busy_s`` the mean over the cards, each with its per-card list
+beside it, and every card's cache is emptied before the judgement.
 """
 
 import importlib
@@ -80,11 +87,20 @@ class Cell:
             f"portbench.layer_metrics.{metric.split('.')[0]}").read
 
 
+def cell_devices(platform, chips):
+    """The devices of a cell of ``chips`` on ``platform`` ("cuda" or
+    "cpu")."""
+    if platform == "cuda":
+        return [torch.device("cuda", i) for i in range(chips)]
+    return [torch.device(platform)] * chips
+
+
 class Context:
     """What a per-layer reader gets: the cell, the unprofiled window's
-    step records and seconds, the profiled steps with their trace, and
-    how many launches of each hand-written kernel the port's own counter
-    (``ops.tile_kernels.LAUNCHES``) saw during the profiled steps."""
+    step records and seconds, the profiled steps with their trace, how
+    many launches of each hand-written kernel the port's own counter
+    (``ops.tile_kernels.LAUNCHES``) saw during the profiled steps.  The
+    cell's cards are the trace's devices 0 to ``cell.chips`` - 1."""
 
     def __init__(self, cell, records, window_s, traced, trace, launches):
         self.cell = cell
@@ -143,6 +159,15 @@ def _checks(readings, limits):
     return checks, ok
 
 
+def empty_caches(devices):
+    """Release the cached blocks of every CUDA card of ``devices``, so
+    that the float64 reference finds each card's memory free."""
+    for d in devices:
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+
 def _power_limit():
     try:
         out = subprocess.run(
@@ -153,23 +178,48 @@ def _power_limit():
     return out.strip().splitlines()[0] if out.strip() else "unknown"
 
 
-def run_cell(root, workload, seed, seconds, trace, device, t0, control=False,
-             cell=None):
-    """Run ``workload`` once on ``device``; returns (result, checks,
+def _device(cell, devices, peaks, tr):
+    """The result's ``device``: the fullest card's peak memory, and with
+    a trace ``busy_s``, the mean over the cards, and ``window_s``; each
+    per-card reading also as a list, in the cards' order."""
+    is_cuda = devices[0].type == "cuda"
+    dev = {
+        "platform": "gpu" if is_cuda else "cpu",
+        "kind": torch.cuda.get_device_name(0) if is_cuda else "cpu",
+        "count": cell.chips,
+        "memory_peak_bytes": int(max(peaks)),
+        "memory_peak_bytes_per_device": [int(p) for p in peaks],
+    }
+    if is_cuda:
+        dev["power_limit"] = _power_limit()
+    if tr is not None:
+        busy = [tr.busy_us(i) / 1e6 for i in range(cell.chips)]
+        dev["busy_s"] = sum(busy) / len(busy)
+        dev["busy_s_per_device"] = busy
+        dev["window_s"] = tr.window_us() / 1e6
+    return dev
+
+
+def run_cell(root, workload, seed, seconds, trace, platform, t0,
+             control=False, cell=None):
+    """Run ``workload`` once on ``platform`` ("cuda" or "cpu"), on the
+    cell's devices (:func:`cell_devices`); returns (result, checks,
     control).  With ``control``, the control's readings go through the
     same limits: ``control`` is {"checks", "correct"}, and None without.
     ``cell`` replaces the files' cell (the tests give a small one)."""
     from gpyreg_tpu_torch.ops import tile_kernels
 
     cell = cell or Cell(root, workload)
-    runner = cell.kind().Runner(cell.cfg, cell.traffic, seed, device)
-    is_cuda = torch.device(device).type == "cuda"
+    devices = cell_devices(platform, cell.chips)
+    runner = cell.kind().Runner(cell.cfg, cell.traffic, seed, devices)
+    is_cuda = platform == "cuda"
     runner.setup()
     devtrace_on = bool(trace)
     # Set-up ends where the first timed step starts.
     setup_s = time.perf_counter() - t0
     records, window_s = _timed_steps(runner, seconds)
-    peak = torch.cuda.max_memory_allocated() if is_cuda else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if is_cuda else 0
+             for d in devices]
     traced = tr = None
     if devtrace_on:
         steps = int(cell.traffic["trace_steps"])
@@ -182,7 +232,7 @@ def run_cell(root, workload, seed, seconds, trace, device, t0, control=False,
             ]
 
         before = dict(tile_kernels.LAUNCHES)
-        tr = devtrace.capture(run, device)
+        tr = devtrace.capture(run, platform)
         launches = {k: tile_kernels.LAUNCHES[k] - before[k] for k in before}
         traced = holder["records"]
     if forbidden_modules():
@@ -205,31 +255,20 @@ def run_cell(root, workload, seed, seconds, trace, device, t0, control=False,
             metrics[m["name"]] = {"value": e2e[m["name"]], "unit": m["unit"]}
 
     runner.release()
-    if is_cuda:
-        torch.cuda.empty_cache()
+    empty_caches(devices)
     readings, ctl = _judge(runner, control)
     checks, ok = _checks(readings, cell.limits)
     if ctl is not None:
         ctl_checks, ctl_ok = _checks(ctl, cell.limits)
         ctl = {"checks": ctl_checks, "correct": bool(ctl_ok)}
-    dev = {
-        "platform": "gpu" if is_cuda else "cpu",
-        "kind": torch.cuda.get_device_name(0) if is_cuda else "cpu",
-        "count": cell.chips,
-        "memory_peak_bytes": int(peak),
-    }
-    if is_cuda:
-        dev["power_limit"] = _power_limit()
     result = {
         "correct": bool(ok and failed == 0),
         "attempted": attempted,
         "failed": failed,
         "metrics": metrics,
-        "device": dev,
+        "device": _device(cell, devices, peaks, tr),
     }
     if devtrace_on:
-        dev["busy_s"] = tr.busy_us() / 1e6
-        dev["window_s"] = tr.window_us() / 1e6
         result["breakdown"] = {"device_ops": tr.device_ops(),
                                "idle_gaps": tr.idle_gaps()}
     result["checks"] = checks

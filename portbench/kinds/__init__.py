@@ -2,7 +2,10 @@
 kind and a configuration into set-up, timed steps and the outputs that
 are judged.
 
-A ``Runner(cfg, traffic, seed, device)`` has ``setup()``; ``prepare()``
+A ``Runner(cfg, traffic, seed, devices)`` gets the cell's devices, one a
+chip (``harness.cell_devices``: a one-chip kind uses ``devices[0]``, a
+kind on several cards makes its mesh of them with
+``make_mesh(devices=devices)``), and has ``setup()``; ``prepare()``
 (the next step's inputs, untimed); ``step()`` (one timed step, ending
 synchronized, returning its record: ``units``, ``flops``, ``tiles`` and
 ``vjps`` (the launches of the two kernels, as (n, m, d, self) and (n, d)

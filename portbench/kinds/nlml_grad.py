@@ -20,9 +20,9 @@ from ..work import nlml_grad as w_nlml_grad
 
 
 class Runner:
-    def __init__(self, cfg, traffic, seed, device):
+    def __init__(self, cfg, traffic, seed, devices):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
-        self.device = torch.device(device)
+        self.device = devices[0]
         self.calls = []
 
     def setup(self):

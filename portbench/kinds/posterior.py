@@ -26,9 +26,9 @@ BLOCK = 2048
 
 
 class Runner:
-    def __init__(self, cfg, traffic, seed, device):
+    def __init__(self, cfg, traffic, seed, devices):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
-        self.device = torch.device(device)
+        self.device = devices[0]
         self.builds = []
 
     def setup(self):

@@ -19,9 +19,9 @@ from ..work import predict as w_predict
 
 
 class Runner:
-    def __init__(self, cfg, traffic, seed, device):
+    def __init__(self, cfg, traffic, seed, devices):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
-        self.device = torch.device(device)
+        self.device = devices[0]
         self.M = int(traffic["points_per_request"])
         self.requests = []
 

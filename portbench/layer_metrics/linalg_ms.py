@@ -7,6 +7,8 @@ in the run's ``breakdown``."""
 
 import re
 
+DEVICE_EVENTS_ONLY = True
+
 PATTERNS = re.compile(
     r"potrf|potri|potrs|trtri|lauum|trsm|trsv|trmm|syrk|herk|gemm|gemv|"
     r"getrf|cusolver|cublas|xmma|cutlass|magma|lapack|chol|dot_kernel|"

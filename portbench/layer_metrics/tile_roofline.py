@@ -5,6 +5,8 @@ over the device time of the ``kernel_tile`` events in the trace."""
 from portbench.layer_metrics._launches import share
 from portbench.work import kernel_tile
 
+DEVICE_EVENTS_ONLY = True
+
 
 def read(ctx):
     return share(ctx, "tile_roofline", ["kernel_tile<"], [],

@@ -6,6 +6,8 @@ the device time of the ``kernel_vjp`` events and their
 from portbench.layer_metrics._launches import share
 from portbench.work import kernel_vjp
 
+DEVICE_EVENTS_ONLY = True
+
 
 def read(ctx):
     return share(ctx, "vjp_roofline", ["kernel_vjp<"], ["reduce_partials"],

@@ -8,7 +8,8 @@ import re
 import pytest
 
 from portbench import harness
-from portbench.tests.tiny import CELLS, ROOT
+from portbench.tests.tiny import CELLS, ROOT, small
+from portbench.tests.tiny import manifest as read_manifest
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -17,8 +18,7 @@ PATH = re.compile(r"^[A-Za-z0-9_.\-/]{1,200}$")
 
 @pytest.fixture(scope="module")
 def manifest():
-    with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
-        return json.load(f)
+    return read_manifest()
 
 
 def _line(text):
@@ -76,9 +76,16 @@ def test_names_units_and_entries(manifest):
         assert m["workloads"] and set(m["workloads"]) <= set(cells)
         moved = next(e for e in manifest["end_to_end"] if e["name"] == m["moves"])
         assert set(m["workloads"]) <= set(moved.get("workloads", cells))
-    assert len(set(cells)) == len(cells) == len(CELLS) and set(cells) == set(CELLS)
+    assert len(set(cells)) == len(cells)
     pairs = [(w["config"], w["traffic"]) for w in manifest["workloads"]]
     assert len(set(pairs)) == len(pairs)
+
+
+def test_few_cells_ask_for_four_chips(manifest):
+    """At most a quarter of the cells, rounded down, or one, on 4 chips."""
+    cells = manifest["workloads"]
+    four = [w["name"] for w in cells if w["chips"] == 4]
+    assert len(four) <= max(1, len(cells) // 4), four
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -93,7 +100,10 @@ def test_cell_files_found_by_name(name):
         assert callable(cell.reader(m["name"]))
         assert m["moves"] in e2e
     assert cell.limits and all("limit" in v for v in cell.limits.values())
-    assert cell.cfg["reduced"] == []
+    entry = next(c for c in read_manifest()["configs"]
+                 if c["name"] == cell.entry["config"])
+    assert cell.cfg["reduced"] == entry["reduced"]
+    assert {"sizes", "control"} <= set(small(cell.entry["config"]))
 
 
 def test_config_files_match_manifest(manifest):

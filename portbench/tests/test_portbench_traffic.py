@@ -1,7 +1,14 @@
 """Each cell's traffic run end to end on the CPU at a small size: the
-sound program comes out ``correct``; with the timed path broken
-underneath it does not; and the control, the reference in TF32 put in
-the program's place, fails one of the cell's limits."""
+sound program comes out ``correct`` and reports every metric the
+manifest lists for it; with the timed path broken underneath it does
+not; and the control, the reference in TF32 put in the program's place,
+fails one of the cell's limits.
+
+Every test here runs over every cell of ``BENCHMARK.json``.  The broken
+paths are keyed by the traffic's ``kind``, so a new cell of a kind here
+inherits them; a new kind brings its own in a test file of its own."""
+
+import importlib
 
 import numpy as np
 import pytest
@@ -9,6 +16,7 @@ import torch
 
 import gpyreg_tpu_torch as gt
 from gpyreg_tpu_torch.core import nlml
+from portbench import harness
 from portbench.tests import tiny
 
 GP = gt.GP
@@ -26,10 +34,16 @@ def test_step_runs_and_is_correct(name, trace):
     if trace:
         assert "breakdown" in result
         assert {"busy_s", "window_s"} <= set(result["device"])
-        # A CPU trace has no device events: only host-side readers report.
+        listed = {p["name"] for p in cell.per_layer}
         for key, m in metrics.items():
-            assert key in {p["name"] for p in cell.per_layer}
+            assert key in listed
             assert np.isfinite(m["value"])
+        # A CPU trace has no device events: every other reader reports.
+        for key in listed:
+            module = importlib.import_module(
+                f"portbench.layer_metrics.{key.split('.')[0]}")
+            if not getattr(module, "DEVICE_EVENTS_ONLY", False):
+                assert key in metrics, key
     else:
         assert set(metrics) == {m["name"] for m in cell.end_to_end}
         assert all(m["value"] > 0 for m in metrics.values())
@@ -124,11 +138,12 @@ def _scaled_alpha(monkeypatch):
 
 
 FAULTS = {
-    "config5.predict": [_shift_mean, _half_samples],
-    "d8.nlml_grad": [_shift_value, _half_lanes],
-    "config5.posterior": [_stale_posterior, _half_posterior, _scaled_alpha],
+    "predict": [_shift_mean, _half_samples],
+    "nlml_grad": [_shift_value, _half_lanes],
+    "posterior": [_stale_posterior, _half_posterior, _scaled_alpha],
 }
-CASES = [(n, f) for n, fs in FAULTS.items() for f in fs]
+CASES = [(n, f) for n in tiny.CELLS
+         for f in FAULTS.get(harness.Cell(tiny.ROOT, n).traffic["kind"], [])]
 
 
 @pytest.mark.parametrize("name,fault", CASES,
@@ -139,15 +154,11 @@ def test_broken_timed_path_is_not_correct(name, fault, monkeypatch):
     assert not result["correct"], checks
 
 
-# The control at a size the CPU holds in a test: config 5's and d8's
-# widths, fewer rows.
-CONTROL_SIZES = {"config5": {"N": 512, "D": 10, "S": 8},
-                 "d8": {"N": 512, "D": 8, "B": 8}}
-
-
 @pytest.mark.parametrize("name", tiny.CELLS)
 def test_control_fails_a_limit(name):
-    c = tiny.cell(name, sizes=CONTROL_SIZES[name.split(".")[0]])
+    # At a size the CPU holds in a test: the configuration's widths,
+    # fewer rows (``portbench/small/<config>.json``).
+    c = tiny.cell(name, sizes="control")
     result, checks, ctl = tiny.run(name, control=True, c=c)
     assert result["correct"], checks
     # The harness's own verdict on the control, through the same limits.
