@@ -46,6 +46,14 @@ the owner (``mesh.psum``).  A block that only one shard owns
 :297-303) is read from the owner directly.  No work waits on the host:
 every shard's operations are issued before anything is pulled.
 
+Every block that crosses shards goes through ``mesh.move`` with its
+shard's device, so ``mesh.PEER_COPIES`` counts each copy between two
+cards.  Spans (``tracing.span``): ``gpyreg.dist.build`` (the slabs),
+``gpyreg.dist.cholesky`` (the panel loop), ``gpyreg.dist.solve_lower``,
+``gpyreg.dist.solve_upper`` and ``gpyreg.dist.nlml``; the copies of the
+hyperparameters and of host data to the card are the syncs
+``gpyreg.sync.dist_hyp`` and ``gpyreg.sync.dist_data``.
+
 Left out, being TPU-only: the ``lru_cache``\\ d programs ``_fit_fn`` and
 ``_predict_fn`` with their ``shard_map`` and ``NamedSharding`` layouts,
 and ``_idx`` (:69-73), the int32 start indices of ``dynamic_slice``.
@@ -57,8 +65,8 @@ import numpy as np
 import torch
 
 from ..core.model import ModelSpec, cov_matrix, mean_value, noise_variance
-from ..tracing import phase
-from .mesh import Mesh, _pad_rows, _tensor, all_gather, psum
+from ..tracing import phase, span, to_device
+from .mesh import Mesh, _pad_rows, all_gather, move, psum
 
 _LOG_2PI = math.log(2.0 * math.pi)
 ALGORITHMS = ("masked_full", "two_level")
@@ -99,8 +107,8 @@ def _build_slabs(spec, mesh, hyp_cov, X, mask, sW, jitter):
     place."""
     rows = X.shape[0] // mesh.size
     slabs = []
-    for i, (h, Xd, md, sWd) in enumerate(mesh.replicate((hyp_cov, X, mask,
-                                                         sW))):
+    for i, (h, Xd, md, sWd) in enumerate(mesh.replicate(
+            (hyp_cov, X, mask, sW), mesh.devices[0])):
         a = i * rows
         slab = cov_matrix(spec, h, Xd[a : a + rows], Z=Xd)
         w = sWd * md
@@ -129,7 +137,8 @@ def _cholesky(slabs, devices, b):
         Ljj, info = torch.linalg.cholesky_ex(blk)
         blk.copy_(torch.where(info == 0, Ljj, torch.full_like(Ljj, math.nan)))
         # The shards with rows below the block, each with a copy of it.
-        below = [(s, r0, blk.to(devices[s])) for s in range(o, P)
+        below = [(s, r0, move(blk, devices[s], devices[o]))
+                 for s in range(o, P)
                  for r0 in (_below(s, rows, c1),) if r0 < rows]
         panel = []
         for s, r0, Ljj_s in below:
@@ -138,7 +147,8 @@ def _cholesky(slabs, devices, b):
             col.copy_(torch.linalg.solve_triangular(
                 Ljj_s.mT, col, upper=True, left=False))
             panel.append((s, r0, col))
-        W = [all_gather([c for t, _, c in panel if t <= s], devices[s])
+        W = [all_gather([move(c, devices[s], devices[t])
+                         for t, _, c in panel if t <= s], devices[s])
              for s, _, _ in panel]
         for (s, r0, col), W_s in zip(panel, W):
             slabs[s][r0:, c1 : (s + 1) * rows].addmm_(col, W_s.mT, alpha=-1.0)
@@ -158,7 +168,8 @@ def _solve_lower(slabs, devices, b, rhs):
         zj = torch.linalg.solve_triangular(
             slabs[o][lo : lo + b, c0:c1], z[o][lo : lo + b], upper=False)
         z[o][lo : lo + b] = zj
-        below = [(s, r0, zj.to(devices[s])) for s in range(o, P)
+        below = [(s, r0, move(zj, devices[s], devices[o]))
+                 for s in range(o, P)
                  for r0 in (_below(s, rows, c1),) if r0 < rows]
         for s, r0, zj_s in below:
             z[s][r0:].addmm_(slabs[s][r0:, c0:c1], zj_s, alpha=-1.0)
@@ -175,11 +186,12 @@ def _solve_upper(slabs, devices, b, rhs):
         c1 = c0 + b
         o, lo = divmod(c0, rows)
         blk = rhs[o][lo : lo + b]
-        parts = [slabs[s][r0:, c0:c1].mT @ x[s][r0:]
-                 for s in range(o, P)
-                 for r0 in (_below(s, rows, c1),) if r0 < rows]
-        if parts:
-            blk = blk - psum(parts, devices[o])
+        shards = [(s, r0) for s in range(o, P)
+                  for r0 in (_below(s, rows, c1),) if r0 < rows]
+        if shards:
+            blk = blk - psum(
+                [move(slabs[s][r0:, c0:c1].mT @ x[s][r0:], devices[o],
+                      devices[s]) for s, r0 in shards], devices[o])
         x[o][lo : lo + b] = torch.linalg.solve_triangular(
             slabs[o][lo : lo + b, c0:c1].mT, blk, upper=True)
     return x
@@ -211,12 +223,26 @@ class DistExactPosterior:
     def alpha(self):
         """alpha (Np, 1), gathered on the first shard's device (the
         padded rows are exactly 0)."""
-        return all_gather(self.alphas, self.mesh.devices[0])
+        home = self.mesh.devices[0]
+        return all_gather(_to_home(self.alphas, self.mesh.devices), home)
+
+
+def _to_home(parts, devices):
+    """The shards' parts moved to the first shard's device."""
+    return [move(p, devices[0], d) for p, d in zip(parts, devices)]
 
 
 def _hyp_tensor(hyp, X):
-    return torch.as_tensor(np.asarray(hyp, dtype=np.float64)).to(X.device,
-                                                                 X.dtype)
+    return to_device("dist_hyp", np.asarray(hyp, dtype=np.float64), X.dtype,
+                     X.device)
+
+
+def _data(a, device, dtype=None):
+    """``a`` (numpy or a tensor) as a tensor on ``device``, in ``dtype``
+    or its own; a copy from the host is the sync ``dist_data``."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.as_tensor(np.asarray(a))
+    return to_device("dist_data", a, dtype or a.dtype, device)
 
 
 def _synchronize(mesh):
@@ -252,38 +278,44 @@ def dist_exact_fit(spec: ModelSpec, mesh: Mesh, hyp, X, y, s2=None,
     if algorithm not in ALGORITHMS:
         raise ValueError(f"Unknown algorithm {algorithm!r}")
     home = mesh.devices[0]
-    X = _tensor(X).to(home)
-    y = _tensor(y).to(home, X.dtype)
+    X = _data(X, home)
+    y = _data(y, home, X.dtype)
     N, P = X.shape[0], mesh.size
     b = min(int(b), max(32, N // P))
     Np, rows, _ = plan(N, P, b)
     X = _pad_rows(X, Np)
     y = _pad_rows(y, Np, 0.0)
     if s2 is not None:
-        s2 = _pad_rows(_tensor(s2).to(home, X.dtype), Np, 1.0)
+        s2 = _pad_rows(_data(s2, home, X.dtype), Np, 1.0)
+    devices = mesh.devices
     with torch.no_grad():
         with phase(timings, "factor_s"):
             hyp_cov, mask, sW, r, log_sn2_sum = _scaled_model(
                 spec, _hyp_tensor(hyp, X), X, y, s2, N)
-            slabs = _cholesky(
-                _build_slabs(spec, mesh, hyp_cov, X, mask, sW,
-                             float(jitter)),
-                mesh.devices, b)
+            with span("gpyreg.dist.build"):
+                slabs = _build_slabs(spec, mesh, hyp_cov, X, mask, sW,
+                                     float(jitter))
+            with span("gpyreg.dist.cholesky"):
+                slabs = _cholesky(slabs, devices, b)
             if timings is not None:
                 _synchronize(mesh)
         with phase(timings, "solve_s"):
-            sW_r = [(sW * r[:, 0])[i * rows : (i + 1) * rows, None].to(d)
-                    for i, d in enumerate(mesh.devices)]
-            z = _solve_lower(slabs, mesh.devices, b, sW_r)
-            x = _solve_upper(slabs, mesh.devices, b, z)
-            alphas = [sW[i * rows : (i + 1) * rows, None].to(d) * xi
-                      for i, (d, xi) in enumerate(zip(mesh.devices, x))]
-            quad = psum([torch.sum(zi * zi) for zi in z], home)
-            logdet_half = psum(
-                [torch.sum(torch.log(slab.diagonal(offset=i * rows)))
-                 for i, slab in enumerate(slabs)], home)
-            nlml = (0.5 * quad + logdet_half + 0.5 * log_sn2_sum
-                    + 0.5 * N * _LOG_2PI)
+            sW_r = [move((sW * r[:, 0])[i * rows : (i + 1) * rows, None], d,
+                         home) for i, d in enumerate(devices)]
+            with span("gpyreg.dist.solve_lower"):
+                z = _solve_lower(slabs, devices, b, sW_r)
+            with span("gpyreg.dist.solve_upper"):
+                x = _solve_upper(slabs, devices, b, z)
+            with span("gpyreg.dist.nlml"):
+                alphas = [move(sW[i * rows : (i + 1) * rows, None], d, home)
+                          * xi for i, (d, xi) in enumerate(zip(devices, x))]
+                quad = psum(_to_home([torch.sum(zi * zi) for zi in z],
+                                     devices), home)
+                logdet_half = psum(_to_home(
+                    [torch.sum(torch.log(slab.diagonal(offset=i * rows)))
+                     for i, slab in enumerate(slabs)], devices), home)
+                nlml = (0.5 * quad + logdet_half + 0.5 * log_sn2_sum
+                        + 0.5 * N * _LOG_2PI)
             if timings is not None:
                 _synchronize(mesh)
     return DistExactPosterior(spec, mesh, b, Np, N,
@@ -310,7 +342,7 @@ def dist_exact_predict(post: DistExactPosterior, xs, chunk: int = 1024):
     (mu, s2), (M,) each, in the posterior's dtype."""
     mesh, rows = post.mesh, post.Np // post.mesh.size
     home, dtype = mesh.devices[0], post.X.dtype
-    xs = _tensor(xs).to(home, dtype)
+    xs = _data(xs, home, dtype)
     xs = xs.reshape(-1, post.X.shape[1]) if xs.ndim < 2 else xs
     M = xs.shape[0]
     chunk = min(int(chunk), -(-M // 64) * 64)
@@ -319,24 +351,27 @@ def dist_exact_predict(post: DistExactPosterior, xs, chunk: int = 1024):
         hyp_cov, _, hyp_mean = post.spec.split_hyp(hyp)
         real = (torch.arange(post.Np, device=home) < post.n_real).to(dtype)
         shards = [
-            (d, h, post.X[i * rows : (i + 1) * rows].to(d),
-             real[i * rows : (i + 1) * rows, None].to(d),
-             post.sW[i * rows : (i + 1) * rows, None].to(d))
+            (d, h, move(post.X[i * rows : (i + 1) * rows], d, home),
+             move(real[i * rows : (i + 1) * rows, None], d, home),
+             move(post.sW[i * rows : (i + 1) * rows, None], d, home))
             for i, (d, h) in enumerate(zip(mesh.devices,
-                                           mesh.replicate(hyp_cov)))
+                                           mesh.replicate(hyp_cov, home)))
         ]
         mus, s2s = [], []
         for c in range(0, M, chunk):
             xc = _pad_rows(xs[c : c + chunk], chunk)
-            xcs = [xc.to(d) for d, *_ in shards]
+            xcs = [move(xc, d, home) for d, *_ in shards]
             Ks = [cov_matrix(post.spec, h, Xr, Z=xd).mul_(mr)
                   for (_, h, Xr, mr, _), xd in zip(shards, xcs)]
-            mu = mean_value(post.spec, hyp_mean, xc) + psum(
-                [(K.T @ a)[:, 0] for K, a in zip(Ks, post.alphas)], home)
-            V = _solve_lower(post.slabs, mesh.devices, post.b,
-                             [sw * K for (*_, sw), K in zip(shards, Ks)])
+            mu = mean_value(post.spec, hyp_mean, xc) + psum(_to_home(
+                [(K.T @ a)[:, 0] for K, a in zip(Ks, post.alphas)],
+                mesh.devices), home)
+            with span("gpyreg.dist.solve_lower"):
+                V = _solve_lower(post.slabs, mesh.devices, post.b,
+                                 [sw * K for (*_, sw), K in zip(shards, Ks)])
             kss = cov_matrix(post.spec, hyp_cov, xc, diag=True)
-            s2 = kss - psum([torch.sum(v * v, dim=0) for v in V], home)
+            s2 = kss - psum(_to_home([torch.sum(v * v, dim=0) for v in V],
+                                     mesh.devices), home)
             mus.append(mu)
             s2s.append(s2)
         mu = torch.cat(mus)[:M]

@@ -20,7 +20,10 @@ public call, and NCCL refuses two ranks on one card.
 
 JAX's collectives become copies, written once here: :func:`all_gather`
 concatenates the shards on one device in shard order, :func:`psum` sums
-them there in shard order.  Neither reads a value on the host.  Work
+them there in shard order.  Neither reads a value on the host.  Every
+block that moves between two shards goes through :func:`move`, which
+counts a copy between two distinct devices in ``PEER_COPIES`` (a peer
+copy over NVLink on a host with several cards).  Work
 that does not depend on the host (the CG matvec, the sharded predict and
 quadrature, ``dist_exact``) is issued for every shard before anything is
 pulled, so shards on distinct cards overlap; and since a copy between
@@ -76,27 +79,61 @@ class Mesh:
         return [(min(i * per, n), min((i + 1) * per, n))
                 for i in range(self.size)]
 
-    def replicate(self, obj):
+    def replicate(self, obj, source=None):
         """``obj`` (a tensor, or a tuple, list or named tuple of them;
         anything else passes through) on each shard's device: one copy a
-        distinct device, none where it already lies."""
+        distinct device, none where it already lies.  ``source`` is the
+        device of the shard that holds ``obj`` (:func:`move`)."""
         copies = {}
         out = []
         for dev in self.devices:
             if dev not in copies:
-                copies[dev] = _to(obj, dev)
+                copies[dev] = _to(obj, dev, source)
             out.append(copies[dev])
         return out
 
 
-def _to(obj, device):
+def _to(obj, device, source=None):
     if isinstance(obj, torch.Tensor):
-        return obj.to(device)
+        return move(obj, device, source)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_to(o, device) for o in obj))
+        return type(obj)(*(_to(o, device, source) for o in obj))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_to(o, device) for o in obj)
+        return type(obj)(_to(o, device, source) for o in obj)
     return obj
+
+
+# Copies between two distinct devices of a mesh since the last
+# reset_peer_copies(): how many, and their bytes.
+PEER_COPIES = {"copies": 0, "bytes": 0}
+
+
+def reset_peer_copies():
+    for k in PEER_COPIES:
+        PEER_COPIES[k] = 0
+
+
+def move(t, device, source=None):
+    """``t`` on ``device``.  ``source`` is the device of the shard that
+    holds ``t``, ``t.device`` when None.  A copy between two distinct
+    devices of one type, each with an index, is a peer copy: it adds one
+    to ``PEER_COPIES["copies"]`` and its bytes to ``["bytes"]``, decided on
+    the host from the devices alone, and is made from a contiguous block,
+    so that on the cards it is one memcpy (PyTorch copies a strided block
+    between cards by a kernel instead).  The host (``cpu``, no index) is
+    no peer: a copy from it to a card is not counted.  A mesh's shards
+    name their devices, so ``make_mesh(devices=[cpu:0, ..., cpu:3])``
+    stands for four distinct devices on the CPU, where every tensor reads
+    ``cpu``: there a copy is counted where its caller names the shard's
+    device as ``source``."""
+    device = torch.device(device)
+    source = t.device if source is None else torch.device(source)
+    if (source == device or source.type != device.type
+            or source.index is None or device.index is None):
+        return t.to(device)
+    PEER_COPIES["copies"] += 1
+    PEER_COPIES["bytes"] += t.numel() * t.element_size()
+    return t.contiguous().to(device)
 
 
 def make_mesh(n_devices: int = None, device=None, devices=None) -> Mesh:
@@ -120,15 +157,15 @@ def make_mesh(n_devices: int = None, device=None, devices=None) -> Mesh:
 def all_gather(parts, device):
     """The shards' blocks concatenated on ``device`` in shard order
     (``lax.all_gather(..., tiled=True)``)."""
-    return torch.cat([p.to(device) for p in parts])
+    return torch.cat([move(p, device) for p in parts])
 
 
 def psum(parts, device):
     """The shards' partial results summed on ``device`` in shard order
     (``lax.psum``)."""
-    total = parts[0].to(device)
+    total = move(parts[0], device)
     for p in parts[1:]:
-        total = total + p.to(device)
+        total = total + move(p, device)
     return total
 
 
