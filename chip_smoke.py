@@ -2245,13 +2245,26 @@ def _de_data():
     return X, y, xs, h
 
 
+def _upper_nonzeros(post):
+    """Nonzeros of a dist_exact factor right of each row's own global
+    column: in shard i's local block l, panel l P + i, the block's columns
+    from its first global row on, above their diagonal."""
+    b = post.b
+    total = 0
+    for i, s in enumerate(post.slabs):
+        first = post.shard_rows(i)[::b].tolist()
+        for l, g0 in enumerate(first):
+            total += int(torch.count_nonzero(
+                torch.triu(s[l * b : (l + 1) * b, g0:], 1)))
+    return total
+
+
 def phase_mesh_dist_exact(mesh, data):
     """Mesh group (a): dist_exact at config 5's width (module docstring,
     phase 26a)."""
     from gpyreg_tpu_torch.core.nlml import nlz
     from gpyreg_tpu_torch.ops import tile_kernels as TK
     from gpyreg_tpu_torch.parallel import dist_exact as DE
-    from gpyreg_tpu_torch.parallel.mesh import all_gather
 
     X, y, xs, h = data
     spec = _se_spec(D)
@@ -2279,8 +2292,7 @@ def phase_mesh_dist_exact(mesh, data):
             spec, mesh, h, X32, y32, b=DE_B, algorithm=alg, timings=tm))
         peak = torch.cuda.max_memory_allocated()
         nlml = float(post.nlml)
-        upper = sum(int(torch.count_nonzero(torch.triu(s, i * rows + 1)))
-                    for i, s in enumerate(post.slabs))
+        upper = _upper_nonzeros(post)
         errs = {k: abs(nlml - v) / abs(v) for k, v in
                 (("float32", refs[torch.float32]),
                  ("float64", refs[torch.float64]))}
@@ -2310,10 +2322,8 @@ def phase_mesh_dist_exact(mesh, data):
         spec, mesh, h, X32[:N_DE_PAD], y32[:N_DE_PAD], b=DE_B))
     nlml = float(post_p.nlml)
     err = abs(nlml - refs["pad"]) / abs(refs["pad"])
-    pad_alpha = all_gather(post_p.alphas, DEV)[N_DE_PAD:]
-    rows_p = post_p.Np // P
-    upper = sum(int(torch.count_nonzero(torch.triu(s, i * rows_p + 1)))
-                for i, s in enumerate(post_p.slabs))
+    pad_alpha = post_p.alpha[N_DE_PAD:]
+    upper = _upper_nonzeros(post_p)
     print(f"dist_exact padded: N={N_DE_PAD} on {P} shards (Np {post_p.Np}, "
           f"{post_p.Np - N_DE_PAD} padded rows); launches {launches}; NLML "
           f"{nlml:.6f}, float64 single device {refs['pad']:.6f} (rel "

@@ -21,7 +21,7 @@ from . import mean_functions as mf
 from . import noise_functions as nf
 from . import outwarp_functions as owf
 from .gp import GP
-from .parallel.dist_exact import DistExactPosterior
+from .parallel.dist_exact import DistExactPosterior, dealt_rows
 
 _MEANS = {
     "zero": mf.ZeroMean,
@@ -150,24 +150,26 @@ def dist_exact_from_arrays(spec, mesh, b, n_real, hyp, X, slab, alpha, sW,
     """A port ``DistExactPosterior`` over ``mesh`` from the arrays of the
     JAX package's (``b``, ``n_real``, ``hyp`` and, as numpy, the padded
     inputs ``X`` (Np, D), the lower factor ``slab`` (Np, Np), ``alpha``
-    (Np, 1), ``sW`` (Np,) and ``nlml``), in their dtype: shard i takes
-    its rows of the factor and of alpha onto ``mesh.devices[i]``.  ``spec``
-    is the port's ``core.model.ModelSpec`` of the same model."""
-    Np = int(np.shape(slab)[0])
-    rows = Np // mesh.size
+    (Np, 1), ``sW`` (Np,) and ``nlml``), in their dtype, dealt as
+    ``dist_exact_fit`` deals them: shard i takes the rows
+    ``dealt_rows(i, P, Np / P, b)`` of the factor, panel l P + i as its
+    local block l, onto ``mesh.devices[i]``, and the same rows of alpha
+    onto the first shard's device.  ``spec`` is the port's
+    ``core.model.ModelSpec`` of the same model."""
+    Np, P = int(np.shape(slab)[0]), mesh.size
     home = mesh.devices[0]
 
     def tensor(a):
         return torch.tensor(np.asarray(a))
 
     slab, alpha = tensor(slab), tensor(alpha)
+    dealt = [dealt_rows(i, P, Np // P, int(b)) for i in range(P)]
     return DistExactPosterior(
         spec, mesh, int(b), Np, int(n_real),
         np.asarray(hyp, dtype=np.float64), tensor(X).to(home),
-        [slab[i * rows : (i + 1) * rows].to(d)
-         for i, d in enumerate(mesh.devices)],
-        [alpha[i * rows : (i + 1) * rows].to(d)
-         for i, d in enumerate(mesh.devices)],
+        [slab.index_select(0, idx).to(d)
+         for idx, d in zip(dealt, mesh.devices)],
+        [alpha.index_select(0, idx).to(home) for idx in dealt],
         tensor(sW).to(home),
         None if nlml is None else tensor(nlml).to(home),
     )

@@ -682,8 +682,8 @@ def _dist_exact_against_plain(devices):
     """dist_exact_fit and dist_exact_predict in float32 on a mesh over
     ``devices`` against the plain path (float64, a mesh of as many shards
     on the CPU): one kernel-tile cross a shard for the build, one a shard
-    and chunk for predict, each slab on its shard's device with a zero
-    strict upper triangle."""
+    and chunk for predict, each slab on its shard's device with zeros
+    right of each row's own global column (``shard_rows``)."""
     from gpyreg_tpu_torch.core.model import ModelSpec
     from gpyreg_tpu_torch.parallel import dist_exact as DE
     from gpyreg_tpu_torch.parallel import mesh as PM
@@ -703,7 +703,9 @@ def _dist_exact_against_plain(devices):
     rows = post.Np // P
     for i, slab in enumerate(post.slabs):
         assert slab.device == mesh.devices[i] and slab.shape == (rows, post.Np)
-        assert torch.all(torch.triu(slab, diagonal=i * rows + 1) == 0)
+        cols = torch.arange(post.Np, device=slab.device)
+        upper = cols[None, :] > post.shard_rows(i).to(slab.device)[:, None]
+        assert torch.all(slab[upper] == 0)
     TK.reset_launches()
     mu32, s232 = DE.dist_exact_predict(post, xs)
     chunks = -(-M // min(1024, -(-M // 64) * 64))

@@ -6,10 +6,13 @@ CPU; the JAX package's is its 8-device virtual CPU mesh
 (``tests/conftest.py``).  Both sides take the same numpy inputs (the
 cases of ``tests/test_dist_exact.py``).  The NLML agrees to 1e-10
 relative, alpha, the factor, the predictive mean and variance to 1e-10;
-the padded rows of alpha are exactly 0 and each slab's strict upper
-triangle exactly 0.  ``convert.dist_exact_from_arrays`` takes the JAX
-package's own factor, and the port's ``dist_exact_predict`` on it agrees
-with JAX's to the same tolerance.  Also covered: the model zoo,
+the padded rows of alpha are exactly 0 and each slab row's entries
+right of its own global column exactly 0.  The port deals B's panels
+round-robin over its shards; the factor is compared after its shards'
+rows are put back in global order through ``DistExactPosterior.
+shard_rows``.  ``convert.dist_exact_from_arrays`` deals the JAX package's
+own factor into that layout, and the port's ``dist_exact_predict`` on it
+agrees with JAX's to the same tolerance.  Also covered: the model zoo,
 heteroskedastic and rectified noise, both ``algorithm`` names, jitter,
 the refusals of output warping and of an unknown algorithm, ``plan``, a
 failed factorization giving NaN on both sides, and float32 against the
@@ -76,11 +79,18 @@ def _max_abs(a, b):
     return float(np.max(np.abs(np.asarray(a) - np.asarray(b))))
 
 
+def _global_factor(post):
+    """The shards' rows of the factor put back in global order."""
+    out = torch.empty(post.Np, post.Np, dtype=post.slabs[0].dtype)
+    for i, slab in enumerate(post.slabs):
+        out[post.shard_rows(i)] = slab
+    return out
+
+
 def _same_posterior(jpost, tpost, xs, chunk=1024):
     assert float(tpost.nlml) == pytest.approx(float(jpost.nlml), rel=TOL)
     assert _max_abs(tpost.alpha.numpy(), jpost.alpha) < TOL
-    slab = torch.cat(tpost.slabs).numpy()
-    assert _max_abs(slab, jpost.slab) < TOL
+    assert _max_abs(_global_factor(tpost).numpy(), jpost.slab) < TOL
     mu_j, s2_j = JDE.dist_exact_predict(jpost, xs, chunk=chunk)
     mu_t, s2_t = TDE.dist_exact_predict(tpost, xs, chunk=chunk)
     assert _max_abs(mu_t, mu_j) < TOL
@@ -97,9 +107,12 @@ def test_fit_and_predict_equal_the_jax_tier(jmesh, N, b):
     assert (tpost.Np, tpost.b) == (jpost.Np, jpost.b)
     assert torch.all(tpost.alpha[N:] == 0.0)
     rows = tpost.Np // T_MESH.size
+    cols = torch.arange(tpost.Np)
     for i, slab in enumerate(tpost.slabs):
         assert tuple(slab.shape) == (rows, tpost.Np)
-        assert torch.all(torch.triu(slab, diagonal=i * rows + 1) == 0.0)
+        # Each row's entries right of its own global column.
+        upper = cols[None, :] > tpost.shard_rows(i)[:, None]
+        assert torch.all(slab[upper] == 0.0)
 
     # The JAX package's own factor, served by the port.
     conv = dist_exact_from_arrays(
@@ -110,6 +123,32 @@ def test_fit_and_predict_equal_the_jax_tier(jmesh, N, b):
     mu_c, s2_c = TDE.dist_exact_predict(conv, xs)
     assert _max_abs(mu_c, mu_j) < TOL and _max_abs(s2_c, s2_j) < TOL
     assert float(conv.nlml) == float(jpost.nlml)
+
+
+@pytest.mark.parametrize("N,b,P", [(512, 32, 8), (500, 32, 4), (130, 16, 8)])
+def test_dist_exact_from_arrays_deals_the_jax_factor(jmesh, N, b, P):
+    """The JAX package's factor and alpha, dealt onto the port's shards,
+    are the port's own rows of them, bit for bit, and come back whole."""
+    specs = _specs(D=3, cov="se", mean="const")
+    X, y, _, _ = _data(N, 3, seed=7)
+    hyp = _hyp(specs[1], seed=8)
+    jpost = JDE.dist_exact_fit(specs[0], jmesh, hyp, X, y, b=b)
+    slab, alpha = np.asarray(jpost.slab), np.asarray(jpost.alpha)
+    mesh = TMESH.make_mesh(P, device="cpu")
+    conv = dist_exact_from_arrays(
+        specs[1], mesh, jpost.b, jpost.n_real, jpost.hyp, jpost._X_pad,
+        slab, alpha, np.asarray(jpost.sW), np.asarray(jpost.nlml))
+    rows = jpost.Np // P
+    for i in range(P):
+        mine = TDE.dealt_rows(i, P, rows, jpost.b).numpy()
+        # Local block l of shard i is panel l P + i.
+        assert np.array_equal(mine.reshape(-1, jpost.b)[:, 0] // jpost.b,
+                              np.arange(rows // jpost.b) * P + i)
+        assert np.array_equal(conv.shard_rows(i).numpy(), mine)
+        assert np.array_equal(conv.slabs[i].numpy(), slab[mine])
+        assert np.array_equal(conv.alphas[i].numpy(), alpha[mine])
+    assert np.array_equal(_global_factor(conv).numpy(), slab)
+    assert np.array_equal(conv.alpha.numpy(), alpha)
 
 
 @pytest.mark.parametrize("cov,mean",

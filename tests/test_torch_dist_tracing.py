@@ -2,7 +2,9 @@
 under ``torch.profiler`` each ``gpyreg.dist.*`` phase of a fit is one
 span and the hyperparameters' copy one sync; ``mesh.PEER_COPIES`` counts
 every block that moves between two distinct devices, as worked out by
-hand for four shards, and nothing on a mesh of one device."""
+hand for four shards, and nothing on a mesh of one device;
+``dist_exact.UPDATE_MACS`` counts each shard's trailing-update
+multiply-adds."""
 
 import math
 
@@ -82,34 +84,60 @@ def _count(mesh, N, b):
 
 
 def test_peer_copies_of_a_fit_on_four_devices_as_counted_by_hand():
-    # P = 4, N = 256, b = 32: 64 rows a shard, 8 panels, two a shard;
-    # float64, D = 2.  Panel c0's owner o = c0 // 64; a shard s > o has
-    # rows below the panel, and o too but for its last panel.
+    # P = 4, N = 256, b = 32: 64 rows a shard, 8 panels dealt round-robin,
+    # so shard s holds panels s and s + 4; float64, D = 2.  Panel p's
+    # owner is shard p % 4.  A shard has rows below panel p if its panel
+    # s + 4 is below it: all four for p < 4, then shards p - 3 .. 3.
     _, got = _count(M.make_mesh(devices=FOUR), 256, 32)
     B = 8
     blocks = {
         # hyp_cov (3), X (256 x 2), mask and sW (256) from the first
         # device to the other three.
         "replicate": (4 * 3, 3 * B * (3 + 512 + 256 + 256)),
-        # The (32, 32) factor of a panel to each other shard below it:
-        # 3, 3, 2, 2, 1, 1, 0, 0 over the panels.
-        "factor": (12, 12 * B * 32 * 32),
-        # Shard s gathers the panel rows of every shard t < s below it
-        # (32 columns): panel 0: 1 + 2 + 3 copies of 32, 64 and 64 rows
-        # (shard 0 has 32 below); panel 1: 1 + 2, 64 rows each; panel 2:
-        # 1 + 2 of 32, 32 and 64 rows; panel 3: one of 64; panel 4: one
-        # of 32; none after.
-        "gather": (14, B * 32 * (288 + 192 + 128 + 64 + 32)),
-        # Forward: each panel's (32, 1) solution to each shard below;
-        # backward: each shard's (32, 1) share to the panel's owner.
-        "solves": (24, 24 * B * 32),
-        # sW r and sW, (64, 1) a shard, to the three other shards; the
-        # quadratic form's and the log-determinant's scalars back.
+        # The (32, 32) factor of a panel to each other shard with rows
+        # below it: 3, 3, 3, 3, 3, 2, 1, 0 over the panels.
+        "factor": (18, 18 * B * 32 * 32),
+        # Every shard with rows below a panel takes the whole solved panel
+        # column of every other such shard, 32 columns: n such shards make
+        # n (n - 1) copies, each shard's rows to the n - 1 others.  Rows
+        # below on shards 0-3: panel 0: 32 (shard 0 has panel 4 left),
+        # 64, 64, 64; panel 1: 32, 32, 64, 64; panel 2: 32, 32, 32, 64;
+        # panel 3: 32 each; panel 4: shards 1-3, 32 each; panel 5: shards
+        # 2 and 3, 32 each; panel 6: shard 3 alone, no copy.
+        "gather": (4 * 12 + 6 + 2,
+                   B * 32 * (3 * (224 + 192 + 160 + 128) + 2 * 96 + 64)),
+        # Forward: each panel's (32, 1) solution to each other shard with
+        # rows below; backward: each such shard's (32, 1) share to the
+        # panel's owner.
+        "solves": (36, 36 * B * 32),
+        # sW r, (64, 1) a shard, to the three other shards, and x back to
+        # the first, where alpha is made; the quadratic form's and the
+        # log-determinant's scalars back.
         "vectors": (12, 6 * B * 64 + 6 * B),
     }
     assert got == {"copies": sum(c for c, _ in blocks.values()),
                    "bytes": sum(n for _, n in blocks.values())}
-    assert got == {"copies": 74, "bytes": 312440}
+    assert got == {"copies": 134, "bytes": 790648}
+
+
+def test_the_trailing_updates_are_dealt_evenly_over_four_shards():
+    """N = 4096, b = 32 on four shards: each shard's multiply-adds within
+    5% of the mean, and all of them within 10% of Np^3 / 6, the lower
+    triangle's."""
+    X, y, hyp = _data(4096)
+    DE.reset_update_macs()
+    post = DE.dist_exact_fit(SPEC, M.make_mesh(4, device="cpu"), hyp,
+                             X.astype(np.float32), y.astype(np.float32), b=32)
+    macs = list(DE.UPDATE_MACS)
+    assert post.Np == 4096 and len(macs) == 4
+    mean = sum(macs) / 4
+    assert max(abs(m - mean) for m in macs) <= 0.05 * mean, macs
+    assert abs(sum(macs) - 4096 ** 3 / 6) <= 0.1 * 4096 ** 3 / 6, macs
+    # Exactly the lower triangle with its diagonal blocks: row block g
+    # takes (g - p) b^3 from each panel p < g.
+    assert sum(macs) == 32 ** 3 * sum(g * (g + 1) // 2 for g in range(128))
+    DE.reset_update_macs()
+    assert DE.UPDATE_MACS == []
 
 
 @pytest.mark.parametrize("n", [1, 4])
